@@ -9,24 +9,41 @@ Run from the repository root with no arguments::
 Phases, each printing its own lines:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), then
-   ``nvcc`` builds every kernel source of the port (``csrc/*.cu``).
-2. Kernel vs plain version: the NMS case matrix of
-   ``scripts/check_pallas.py`` through ``nms_bitmask`` and through the
-   plain ``nms_padded`` on the same CUDA inputs; kept indices must be
-   identical.
-3. The slice at full width: ResNet-101 Faster R-CNN, VOC (21 classes),
-   600×1000 bucket, TEST config, bfloat16, seeded random weights.  Four raw
-   RGB uint8 images in batches of two go through stage → device prep →
-   ``Predictor`` → ``im_detect`` → ``per_class_nms`` →
+   ``nvcc`` builds every kernel source of the port (``csrc/*.cu``), all
+   started together.
+2. Kernels vs plain versions on the same CUDA inputs: the NMS case matrix
+   of ``scripts/check_pallas.py`` (kept indices identical to
+   ``nms_padded``), and the assign case matrix of
+   ``tests/test_assign_fused.py`` plus the main path's shape (all four
+   outputs of the two assign kernels bitwise equal to the dense path).
+3. The inference slice at full width: ResNet-101 Faster R-CNN, VOC (21
+   classes), 600×1000 bucket, TEST config, bfloat16, seeded random weights.
+   Four raw RGB uint8 images in batches of two go through stage → device
+   prep → ``Predictor`` → ``im_detect`` → ``per_class_nms`` →
    ``detections_to_records``; both NMS kernels must launch once per batch.
    One batch is rerun in float32 (TF32 off) and ``propose``'s kept
    indices are held against the plain NMS on the same RPN outputs.
-4. Times: each kernel and its plain version with CUDA events (median of
-   ``REPS`` runs after warm-up) at the main path's shapes (``BATCH`` images,
-   6000 → 300) and at the training shape, beside the least time the card
-   could take (bound).  The main path's line also reports how many
-   proposals each image kept and the largest RPN delta.
-5. One ``{"kernels": [...]}`` JSON line, then the last line
+4. The training slice at full width: the same network with the TRAIN
+   config, ``ASSIGN_FUSED=True``, ``FLIP=True``, bfloat16 compute on
+   float32 parameters, ``SyntheticDataset`` at 600×1000 through
+   ``AnchorLoader`` → ``fit`` (``BATCH`` images per step).  Every step's
+   losses must be finite and each of the four kernels must launch exactly
+   once per step; frozen leaves stay bitwise, trainable ones move.  Then
+   ``FIT_STEPS`` steps on one fixed batch must lower the loss, the weights
+   are saved de-normalized and served by ``Predictor``.  One float32 train
+   forward (TF32 off) with the fused assign and one with the dense path,
+   from the same weights, batch and draws, must give identical RPN labels
+   and equal losses.
+5. Times: each kernel with CUDA events around replays of a CUDA graph of
+   ``KERNEL_RUN`` calls (its device time; ``eager_ms`` is the same calls
+   made eagerly, host overhead included), its plain version with CUDA
+   events around eager calls (median of ``REPS`` runs after warm-up), and
+   the least time the card could take (bound): the NMS pair at the
+   inference shape (6000 → 300) and at the training shape (12000 → 2000)
+   on the model's RPN boxes, the assign pair on the training batch and at
+   G = 100 valid gt for N = 21 888 and FPN's N = 155 520; and the median
+   train step wall time with the fused and the dense assign.
+6. One ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
@@ -42,7 +59,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -50,9 +69,14 @@ import torch
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-SOURCE = "mx_rcnn_tpu_torch/csrc/nms_bitmask.cu"
+SOURCES = {"nms_mask": "mx_rcnn_tpu_torch/csrc/nms_bitmask.cu",
+           "nms_sweep": "mx_rcnn_tpu_torch/csrc/nms_bitmask.cu",
+           "assign_gtmax": "mx_rcnn_tpu_torch/csrc/assign_iou.cu",
+           "assign_rows": "mx_rcnn_tpu_torch/csrc/assign_iou.cu"}
 REPLACES = {"nms_mask": "mx_rcnn_tpu/kernels/nms_pallas.py:62",
-            "nms_sweep": "mx_rcnn_tpu/kernels/nms_pallas.py:99"}
+            "nms_sweep": "mx_rcnn_tpu/kernels/nms_pallas.py:99",
+            "assign_gtmax": "mx_rcnn_tpu/kernels/assign_pallas.py:54",
+            "assign_rows": "mx_rcnn_tpu/kernels/assign_pallas.py:54"}
 # f32 operations of one IoU decision: min, max, sub, add per axis (8), two
 # clamps, the product, union add and sub, its clamp, the divide, the compare
 IOU_OPS = 16
@@ -67,9 +91,23 @@ BATCH = 2
 REPS = 20
 # random weights cannot absorb the raw 0..255 pixel scale of the reference
 # contract (PIXEL_STDS=1): with it the RPN deltas blow up through exp(dw)
-# and the proposals collapse onto the image's edges.  The slice normalises
-# as the JAX package's synthetic serving does (mx_rcnn_tpu/tools/common.py)
+# and the proposals collapse onto the image's edges.  The slices normalise
+# as the JAX package's synthetic serving and training do
+# (mx_rcnn_tpu/tools/common.py)
 PIXEL_STDS = (127.0, 127.0, 127.0)
+# synthetic images of the training slice (flipped too: twice the records);
+# fit runs one epoch over them, BATCH per step
+TRAIN_IMAGES = 4
+# steps on one fixed batch that must lower the loss, and the steps timed
+# per assign route (ABBA order) for the step wall time
+FIT_STEPS = 20
+TIMED_STEPS = 3
+# FPN's concatenated anchors at the 608×1024 bucket (P2..P6 at strides 4 to
+# 64, 3 anchors per cell): the shape assign_pallas.py was written for
+FPN_ANCHORS = 155_520
+FPN_STRIDES = (4, 8, 16, 32, 64)
+LOSS_KEYS = ("rpn_cls_loss", "rpn_bbox_loss", "rcnn_cls_loss",
+             "rcnn_bbox_loss")
 
 
 def log(phase: str, **kw) -> None:
@@ -110,6 +148,25 @@ def cuda_median_ms(fn, per_rep: int = 1, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_rep)
     return statistics.median(times)
+
+
+def graph_median_ms(fn, per_rep: int = KERNEL_RUN) -> float:
+    """Device time of one call: ``per_rep`` calls captured once in a CUDA
+    graph, the graph replayed between two CUDA events ``REPS`` times
+    (median over ``per_rep``).  Eager calls of a small kernel measure the
+    host's Python and launch overhead between launches instead; the
+    replay leaves that out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_rep):
+            fn()
+    return cuda_median_ms(graph.replay) / per_rep
 
 
 # ---- phase 2 ----------------------------------------------------------------
@@ -164,7 +221,81 @@ def check_nms_matrix(nms_cuda, nms_padded, dev) -> int:
     return cases + 1
 
 
-# ---- phase 4 ----------------------------------------------------------------
+def assign_case(rng, anchors, im_hw, n_gt, g, size=(20.0, 60.0)):
+    """``tests/test_assign_fused.py``'s case on any anchor set: ``n_gt``
+    random gt boxes of side size[0] + U·size[1] inside an im_hw image,
+    padded to ``g``; the inside mask of that image."""
+    im_h, im_w = im_hw
+    span = size[0] + size[1]
+    gt = np.zeros((g, 4), np.float32)
+    for i in range(n_gt):
+        x1, y1 = rng.rand(2) * np.array([im_w - span, im_h - span])
+        gt[i] = [x1, y1, x1 + size[0] + rng.rand() * size[1],
+                 y1 + size[0] + rng.rand() * size[1]]
+    valid = np.arange(g) < n_gt
+    inside = ((anchors[:, 0] >= 0) & (anchors[:, 1] >= 0)
+              & (anchors[:, 2] < im_w) & (anchors[:, 3] < im_h))
+    return gt, valid, inside
+
+
+def check_assign_matrix(assign_cuda, all_anchors, generate_anchors, dev,
+                        main_anchors, main_hw) -> int:
+    """The assign kernels against the dense plain version on the same CUDA
+    inputs: all four outputs bitwise equal, and each kernel against its
+    own plain version.  Returns the number of cases."""
+    def one(name, anchors, gt, valid, inside):
+        a = torch.from_numpy(anchors).to(dev)
+        args = (a, torch.from_numpy(gt).to(dev), torch.from_numpy(valid).to(dev),
+                torch.from_numpy(inside).to(dev))
+        got = assign_cuda.assign_reduce(*args)
+        want = assign_cuda.assign_reduce_plain(*args)
+        for what, x, y in zip(("max_overlap", "argmax", "gt_max", "tie"), got,
+                              want, strict=True):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"assign mismatch [{name}] in {what}")
+        parts = assign_cuda.assign_gtmax(*args)
+        if not torch.equal(parts, assign_cuda.gtmax_partials_plain(*args)):
+            fail(f"assign_gtmax disagrees with its plain version [{name}]")
+        rows = assign_cuda.assign_rows(*args, parts)
+        for x, y in zip(rows, assign_cuda.rows_plain(*args, parts), strict=True):
+            if not torch.equal(x, y):
+                fail(f"assign_rows disagrees with its plain version [{name}]")
+
+    small = all_anchors(10, 12, 16, generate_anchors(scales=(1, 2, 4)))
+    cases = 0
+    for seed, n_gt in enumerate((0, 1, 5, 16)):
+        gt, valid, inside = assign_case(np.random.RandomState(seed), small,
+                                        (160, 192), n_gt, 16)
+        one(f"{n_gt} gt", small, gt[None], valid[None], inside[None])
+        cases += 1
+    gt, valid, inside = assign_case(np.random.RandomState(7), small,
+                                    (160, 192), 3, 16)
+    gt[1] = gt[0]                                    # exact ties
+    one("duplicate gt", small, gt[None], valid[None], inside[None])
+    one("all outside", small, gt[None], valid[None],
+        np.zeros_like(inside)[None])
+    cases += 2
+    big = (40.0, 360.0)
+    for g in (100, 128):
+        gt, valid, inside = assign_case(np.random.RandomState(g), main_anchors,
+                                        main_hw, g, g, big)
+        one(f"G={g}", main_anchors, gt[None], valid[None], inside[None])
+        cases += 1
+    per = [assign_case(np.random.RandomState(30 + b), main_anchors, main_hw,
+                       n, 100, big) for b, n in enumerate((3, 40, 17))]
+    valid = np.stack([p[1] for p in per])
+    valid[1, 5:9] = False                            # holes in the valid run
+    valid[2, 0] = False
+    one("B=3 holes", main_anchors, np.stack([p[0] for p in per]), valid,
+        np.stack([p[2] for p in per]))
+    per = [assign_case(np.random.RandomState(40 + b), main_anchors, main_hw,
+                       6, 100, big) for b in range(BATCH)]
+    one("main path shape", main_anchors, *(np.stack([p[i] for p in per])
+                                           for i in range(3)))
+    return cases + 2
+
+
+# ---- times ------------------------------------------------------------------
 
 def upper_blocks(n: int, cb: int, dev) -> torch.Tensor:
     """(n, cb) bool: the words the mask kernel writes (its row's own
@@ -215,24 +346,84 @@ def time_kernels(nms_cuda, boxes, valid, max_out, thresh):
     pi, pm = nms_cuda.sweep_plain(words, valid, max_out)
     sweep_err = float(max((ki.long() - pi.long()).abs().max(),
                           (km.long() - pm.long()).abs().max()))
-    mask_ms = cuda_median_ms(lambda: nms_cuda.nms_mask(boxes, thresh),
-                             KERNEL_RUN)
+    mask = lambda: nms_cuda.nms_mask(boxes, thresh)
+    sweep = lambda: nms_cuda.nms_sweep(words, valid, max_out)
     mask_plain_ms = cuda_median_ms(
         lambda: nms_cuda.suppression_mask_plain(boxes, thresh))
-    sweep_ms = cuda_median_ms(
-        lambda: nms_cuda.nms_sweep(words, valid, max_out), KERNEL_RUN)
     sweep_plain_ms = cuda_median_ms(
         lambda: nms_cuda.sweep_plain(words, valid, max_out))
     mb, mb_by = bound_of(*mask_bound(b, n, cb))
     sb, sb_by = bound_of(*sweep_bound(ki, km, n, cb, max_out))
     return [
-        {"name": "nms_mask", "max_abs_err": mask_err, "ms": mask_ms,
+        {"name": "nms_mask", "max_abs_err": mask_err,
+         "ms": graph_median_ms(mask),
+         "eager_ms": cuda_median_ms(mask, KERNEL_RUN),
          "plain_ms": mask_plain_ms, "bound_ms": mb, "bound_by": mb_by,
          "library_ms": None},
-        {"name": "nms_sweep", "max_abs_err": sweep_err, "ms": sweep_ms,
+        {"name": "nms_sweep", "max_abs_err": sweep_err,
+         "ms": graph_median_ms(sweep),
+         "eager_ms": cuda_median_ms(sweep, KERNEL_RUN),
          "plain_ms": sweep_plain_ms, "bound_ms": sb, "bound_by": sb_by,
          "library_ms": None, "kept": [int(x) for x in km.sum(1)]},
     ]
+
+
+def fpn_anchors(all_anchors, generate_anchors, hw=(608, 1024)):
+    """The FPN presets' concatenated P2..P6 anchors of one bucket."""
+    out = np.concatenate([
+        all_anchors(-(-hw[0] // st), -(-hw[1] // st), st,
+                    generate_anchors(base_size=st, scales=(8,)))
+        for st in FPN_STRIDES])
+    if len(out) != FPN_ANCHORS:
+        fail(f"expected {FPN_ANCHORS} FPN anchors, built {len(out)}")
+    return out
+
+
+def assign_bounds(anchors, gt_valid, inside):
+    """{kernel: (bytes, ops)} of the assign pair on these inputs, counting
+    what the function needs: anchors, flags and gt read once by each
+    kernel, the four outputs written once by assign_rows with argmax as
+    the int32 of the TPU kernel's contract (the design's per-tile partials
+    are not the function's traffic); an IoU for every (inside anchor,
+    valid gt) pair in assign_gtmax and every (anchor, valid gt) pair in
+    assign_rows."""
+    b, g = gt_valid.shape
+    n = anchors.shape[0]
+    n_valid = gt_valid.sum(1).to(torch.int64)
+    inputs = n * 16 + b * n + b * g * 17
+    gtmax_ops = int((inside.sum(1) * n_valid).sum()) * IOU_OPS
+    rows_ops = int((n * n_valid).sum()) * IOU_OPS
+    return {"assign_gtmax": (inputs, gtmax_ops),
+            "assign_rows": (inputs + b * n * 9 + b * g * 4, rows_ops)}
+
+
+def time_assign(assign_cuda, anchors, gt, valid, inside):
+    """Both assign kernels and their plain versions on the same inputs:
+    results compared bitwise, times and bounds measured."""
+    args = (anchors, gt, valid, inside)
+    parts = assign_cuda.assign_gtmax(*args)
+    gtmax_err = float((parts - assign_cuda.gtmax_partials_plain(*args))
+                      .abs().max())
+    got = assign_cuda.assign_rows(*args, parts)
+    want = assign_cuda.rows_plain(*args, parts)
+    rows_err = max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(got, want, strict=True))
+    bounds = assign_bounds(anchors, valid, inside)
+    out = []
+    for name, err, fn, plain in (
+            ("assign_gtmax", gtmax_err,
+             lambda: assign_cuda.assign_gtmax(*args),
+             lambda: assign_cuda.gtmax_partials_plain(*args)),
+            ("assign_rows", rows_err,
+             lambda: assign_cuda.assign_rows(*args, parts),
+             lambda: assign_cuda.rows_plain(*args, parts))):
+        t, by = bound_of(*bounds[name])
+        out.append({"name": name, "max_abs_err": err,
+                    "ms": graph_median_ms(fn),
+                    "eager_ms": cuda_median_ms(fn, KERNEL_RUN),
+                    "plain_ms": cuda_median_ms(plain), "bound_ms": t,
+                    "bound_by": by, "library_ms": None})
+    return out
 
 
 # ---- the slice --------------------------------------------------------------
@@ -268,6 +459,252 @@ def run_slice(port, predictor, cfg, images, batch_size: int):
     return records, walls
 
 
+# ---- the training slice -------------------------------------------------------
+
+def train_slice(P, port, tcfg, dev, seed: int) -> dict:
+    """SyntheticDataset → AnchorLoader → fit for one epoch, every kernel
+    counter set to 0 just before ``fit`` and read just after; then
+    ``FIT_STEPS`` steps on one fixed batch, and the weights saved
+    de-normalized and served by ``Predictor``.  Returns what the later
+    phases reuse."""
+    scale = tcfg.tpu.SCALES[0]
+    ds = P.SyntheticDataset(num_images=TRAIN_IMAGES,
+                            num_classes=tcfg.NUM_CLASSES, height=scale[0],
+                            width=scale[1], seed=seed)
+    roidb = ds.filter_roidb(ds.append_flipped_images(ds.gt_roidb()))
+    loader = P.AnchorLoader(roidb, tcfg, BATCH, seed=seed)
+    tmodel = P.build_model(tcfg)
+    tparams = P.random_params(tmodel, seed=seed)
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep,
+                "assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+    seen, step_walls = [], []
+    last = [0.0]
+
+    def on_step(epoch, step, metrics):
+        # frequent=1: fit fetches (and so synchronises) after every step
+        now = time.perf_counter()
+        seen.append(metrics)
+        step_walls.append(now - last[0])
+        last[0] = now
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        prefix = os.path.join(ckpt_dir, "e2e")
+        for f in counters.values():
+            f.launches = 0
+        last[0] = time.perf_counter()
+        state = P.fit(tcfg, tmodel, tparams, loader, end_epoch=1,
+                      prefix=prefix, seed=seed, frequent=1, device=dev,
+                      batch_end_callback=on_step)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+        steps = len(seen)
+        if steps != loader.steps_per_epoch:
+            fail(f"fit reported {steps} steps of {loader.steps_per_epoch}")
+        for name, count in launches.items():
+            if count != steps:
+                fail(f"{name} launched {count} times in {steps} train steps")
+        for i, m in enumerate(seen):
+            if not all(np.isfinite(v) for v in m.values()):
+                fail(f"non-finite train metrics at step {i}: {m}")
+        trained = P.export_jax_params(tmodel)
+        changed = {k for k in state.mask
+                   if not np.array_equal(trained[k], tparams[k])}
+        frozen = {k for k, t in state.mask.items() if not t}
+        if changed & frozen:
+            fail(f"{len(changed & frozen)} frozen leaves moved, e.g. "
+                 f"{sorted(changed & frozen)[:3]}")
+        if len(changed) != len(state.mask) - len(frozen):
+            fail(f"{len(state.mask) - len(frozen) - len(changed)} trainable "
+                 f"leaves did not move")
+        log("train_slice", network=tcfg.network.NETWORK,
+            classes=tcfg.NUM_CLASSES, dtype=tcfg.tpu.COMPUTE_DTYPE,
+            assign_fused=tcfg.tpu.ASSIGN_FUSED, records=len(roidb),
+            steps=steps, launches=launches, frozen_leaves=len(frozen),
+            trainable_moved=len(changed), step_wall_s=step_walls,
+            total_loss=[m["total_loss"] for m in seen])
+
+        # the loss must fall on one fixed batch
+        fixed = P.batch_put(next(iter(loader)), tcfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        step_fn = P.make_train_step(tcfg)
+        losses = []
+        for _ in range(FIT_STEPS):
+            _, m = step_fn(state, fixed, generator=gen)
+            losses.append(float(m["total_loss"]))
+        tail = float(np.mean(losses[-5:]))
+        if not np.isfinite(losses).all() or tail >= losses[0]:
+            fail(f"the loss did not fall on one batch: first {losses[0]}, "
+                 f"mean of the last 5 {tail}")
+        log("train_fixed_batch", steps=FIT_STEPS, first=losses[0],
+            last5_mean=tail, losses=losses)
+
+        # saved de-normalized, served by Predictor
+        path = P.epoch_path(prefix, FIT_STEPS)
+        P.save_params_npz(path, P.denormalize_for_save(
+            P.export_jax_params(tmodel), tcfg))
+        served = P.tester.Predictor(P.build_model(tcfg), path, tcfg,
+                                    device=dev)
+        records, walls = run_slice(
+            port, served, tcfg, [r["image_array"] for r in roidb[:BATCH]],
+            BATCH)
+    log("train_served", records_per_image=[len(r) for r in records],
+        batch_wall_s=walls)
+    return {"cfg": tcfg, "model": tmodel, "state": state, "fixed": fixed,
+            "gen": gen, "step_fn": step_fn, "launches": launches}
+
+
+def check_fused_vs_dense(P, ctx, dev) -> None:
+    """The train step's forward in float32 (TF32 off) from the trained
+    weights, on the fixed batch with one set of draws: the fused assign
+    kernels and the dense path must give identical RPN labels and equal
+    losses."""
+    tcfg, fixed = ctx["cfg"], ctx["fixed"]
+    cfg32 = tcfg.replace(tpu=dataclasses.replace(tcfg.tpu,
+                                                 COMPUTE_DTYPE="float32"))
+    model32 = P.build_model(cfg32)
+    P.load_jax_params(model32, P.export_jax_params(ctx["model"]))
+    model32.to(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stride = max(tcfg.network.IMAGE_STRIDE, tcfg.network.RPN_FEAT_STRIDE)
+    hb, wb = P.image_mod.bucket_shape(tcfg.tpu.SCALES[0], stride)
+    feat = tcfg.network.RPN_FEAT_STRIDE
+    n_anchors = (hb // feat) * (wb // feat) * tcfg.network.NUM_ANCHORS
+    n_rois = tcfg.TRAIN.RPN_POST_NMS_TOP_N + tcfg.tpu.MAX_GT
+    draws = {"rpn": P.uniform_draws((BATCH, n_anchors), dev, ctx["gen"]),
+             "rcnn": P.uniform_draws((BATCH, n_rois), dev, ctx["gen"])}
+    outs = {}
+    for fused in (True, False):
+        model32.cfg = cfg32.replace(tpu=dataclasses.replace(
+            cfg32.tpu, ASSIGN_FUSED=fused))
+        n0 = P.assign_cuda.assign_rows.launches
+        with torch.no_grad():
+            total, aux = model32(fixed["images"], fixed["im_info"],
+                                 fixed["gt_boxes"], fixed["gt_classes"],
+                                 fixed["gt_valid"], draws=draws)
+        ran = P.assign_cuda.assign_rows.launches - n0
+        if ran != int(fused):
+            fail(f"ASSIGN_FUSED={fused} launched the assign kernels {ran} "
+                 f"times")
+        outs[fused] = (aux["rpn_label"],
+                       [float(aux[k]) for k in LOSS_KEYS] + [float(total)])
+    if not torch.equal(outs[True][0], outs[False][0]):
+        fail("float32: the fused assign and the dense path give different "
+             "RPN labels")
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(outs[True][1], outs[False][1])]
+    if max(rel) > 1e-6:
+        fail(f"float32: losses differ between the fused and the dense "
+             f"assign ({outs[True][1]} vs {outs[False][1]})")
+    log("train_float32_fused_vs_dense", labels_identical=True,
+        fg_labels=int((outs[True][0] == 1).sum()), losses_fused=outs[True][1],
+        losses_dense=outs[False][1], bitwise=max(rel) == 0.0)
+
+
+def train_times(P, ctx, dev, main_anchors) -> list:
+    """The median train step wall time with the fused and the dense assign
+    (ABBA order on the fixed batch), then every kernel of the training path
+    against its plain version on the main path's inputs, and the assign
+    pair at G = 100 valid gt at the main path's and FPN's anchor counts.
+    Returns the kernels' rows."""
+    tcfg, tmodel, fixed = ctx["cfg"], ctx["model"], ctx["fixed"]
+    step_fn, state, gen = ctx["step_fn"], ctx["state"], ctx["gen"]
+    dense_cfg = tcfg.replace(tpu=dataclasses.replace(tcfg.tpu,
+                                                     ASSIGN_FUSED=False))
+    walls = {True: [], False: []}
+    for fused in (True, False, False, True):
+        tmodel.cfg = tcfg if fused else dense_cfg
+        run = []
+        for _ in range(TIMED_STEPS + 1):       # the first is a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(state, fixed, generator=gen)
+            torch.cuda.synchronize()
+            run.append(time.perf_counter() - t0)
+        walls[fused] += run[1:]
+    tmodel.cfg = tcfg
+    log("train_step_wall", assign_fused_median_s=statistics.median(walls[True]),
+        assign_dense_median_s=statistics.median(walls[False]),
+        fused_s=walls[True], dense_s=walls[False])
+
+    # the kernels' main-path inputs: the trained model's RPN on the batch
+    tr = tcfg.TRAIN
+    with torch.no_grad():
+        feat = tmodel.backbone(fixed["images"])
+        cls, bbox = tmodel.rpn(feat)
+        anchors = tmodel._anchors_for(feat.shape[1], feat.shape[2], dev)
+        boxes, _, valid = P.proposal_candidates(
+            P.fg_prob(cls), bbox, anchors, fixed["im_info"],
+            pre_nms_top_n=tr.RPN_PRE_NMS_TOP_N, min_size=tr.RPN_MIN_SIZE)
+    del feat, cls, bbox
+    im_h, im_w = fixed["im_info"][:, 0:1], fixed["im_info"][:, 1:2]
+    inside = ((anchors[None, :, 0] >= 0) & (anchors[None, :, 1] >= 0)
+              & (anchors[None, :, 2] < im_w) & (anchors[None, :, 3] < im_h))
+    kernels = time_kernels(P.nms_cuda, boxes, valid, tr.RPN_POST_NMS_TOP_N,
+                           tr.RPN_NMS_THRESH)
+    kernels += time_assign(P.assign_cuda, anchors, fixed["gt_boxes"],
+                           fixed["gt_valid"], inside)
+    for k in kernels:
+        if k["max_abs_err"] != 0.0:
+            fail(f"{k['name']} disagrees with its plain version on the "
+                 f"training path's inputs (max abs err {k['max_abs_err']})")
+        k.update(route="cuda", source=SOURCES[k["name"]],
+                 replaces=REPLACES[k["name"]],
+                 launches=ctx["launches"][k["name"]])
+    log("times_train", shape={
+        "B": BATCH, "anchors": int(anchors.shape[0]),
+        "gt": int(fixed["gt_boxes"].shape[1]),
+        "valid_gt": [int(x) for x in fixed["gt_valid"].sum(1)],
+        "nms_n": int(boxes.shape[1]), "max_out": tr.RPN_POST_NMS_TOP_N},
+        kernels=kernels)
+
+    # G = 100 valid gt, the most the training config pads to
+    for a in (main_anchors, fpn_anchors(P.all_anchors, P.generate_anchors)):
+        per = [assign_case(np.random.RandomState(50 + b), a, (600, 1000),
+                           100, 100, (40.0, 360.0)) for b in range(BATCH)]
+        rows = time_assign(P.assign_cuda, torch.from_numpy(a).to(dev), *(
+            torch.from_numpy(np.stack([p[i] for p in per])).to(dev)
+            for i in range(3)))
+        for k in rows:
+            if k["max_abs_err"] != 0.0:
+                fail(f"{k['name']} disagrees with its plain version at "
+                     f"N={len(a)}, G=100")
+        log("times_assign_g100", shape={"B": BATCH, "anchors": len(a),
+                                        "gt": 100}, kernels=rows)
+    return kernels
+
+
+def import_port() -> types.SimpleNamespace:
+    """The port's modules and functions the phases use, imported from the
+    checkout (after the CUDA check, so that a machine without a card fails
+    before importing anything of the port)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.data import image as image_mod
+    from mx_rcnn_tpu_torch.data.loader import AnchorLoader
+    from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from mx_rcnn_tpu_torch.eval import tester
+    from mx_rcnn_tpu_torch.kernels import _build, assign_cuda, nms_cuda
+    from mx_rcnn_tpu_torch.models.detector import build_model
+    from mx_rcnn_tpu_torch.models.losses import fg_prob
+    from mx_rcnn_tpu_torch.ops import postprocess as post
+    from mx_rcnn_tpu_torch.ops.anchors import all_anchors, generate_anchors
+    from mx_rcnn_tpu_torch.ops.assign_anchor import uniform_draws
+    from mx_rcnn_tpu_torch.ops.nms import nms_padded
+    from mx_rcnn_tpu_torch.ops.proposal import propose, proposal_candidates
+    from mx_rcnn_tpu_torch.train.checkpoint import (denormalize_for_save,
+                                                    epoch_path, save_params_npz)
+    from mx_rcnn_tpu_torch.train.train_step import make_train_step
+    from mx_rcnn_tpu_torch.train.trainer import batch_put, fit
+    from mx_rcnn_tpu_torch.utils.convert_jax import (export_jax_params,
+                                                     load_jax_params,
+                                                     random_params)
+
+    return types.SimpleNamespace(**locals())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -276,17 +713,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from mx_rcnn_tpu_torch.config import generate_config
-    from mx_rcnn_tpu_torch.data import image as image_mod
-    from mx_rcnn_tpu_torch.eval import tester
-    from mx_rcnn_tpu_torch.kernels import _build, nms_cuda
-    from mx_rcnn_tpu_torch.models.detector import build_model
-    from mx_rcnn_tpu_torch.models.losses import fg_prob
-    from mx_rcnn_tpu_torch.ops import postprocess as post
-    from mx_rcnn_tpu_torch.ops.nms import nms_padded
-    from mx_rcnn_tpu_torch.ops.proposal import propose, proposal_candidates
-    from mx_rcnn_tpu_torch.utils.convert_jax import random_params
+    P = import_port()
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -301,39 +728,45 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
     t0 = time.perf_counter()
-    libs = _build.build()
+    libs = P._build.build()
     log("build", seconds=time.perf_counter() - t0,
         libraries=sorted(p.name for p in libs.values()))
 
-    # ---- 2. kernel vs plain version on the card -----------------------------
+    # ---- 2. kernels vs plain versions on the card ----------------------------
     t0 = time.perf_counter()
-    cases = check_nms_matrix(nms_cuda, nms_padded, dev)
+    cases = check_nms_matrix(P.nms_cuda, P.nms_padded, dev)
     log("nms_matrix", cases=cases, identical=True,
         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    main_anchors = P.all_anchors(608 // 16, 1024 // 16, 16, P.generate_anchors())
+    cases = check_assign_matrix(P.assign_cuda, P.all_anchors, P.generate_anchors,
+                                dev, main_anchors, (600, 1000))
+    log("assign_matrix", cases=cases, identical=True,
+        seconds=time.perf_counter() - t0)
 
-    # ---- 3. the slice at full width ------------------------------------------
-    cfg = generate_config("resnet101", "PascalVOC")
+    # ---- 3. the inference slice at full width --------------------------------
+    cfg = P.generate_config("resnet101", "PascalVOC")
     cfg = cfg.replace(network=dataclasses.replace(cfg.network,
                                                   PIXEL_STDS=PIXEL_STDS))
-    model = build_model(cfg)
-    params = random_params(model, seed=args.seed)
-    predictor = tester.Predictor(model, params, cfg)
+    model = P.build_model(cfg)
+    params = P.random_params(model, seed=args.seed)
+    predictor = P.tester.Predictor(model, params, cfg)
     rng = np.random.RandomState(args.seed)
     images = [rng.randint(0, 256, hw + (3,), np.uint8) for hw in RAW_SIZES]
-    port = (image_mod, tester, post)
+    port = (P.image_mod, P.tester, P.post)
     stride = max(cfg.network.IMAGE_STRIDE, cfg.network.RPN_FEAT_STRIDE)
     run_slice(port, predictor, cfg, images[:BATCH], BATCH)  # warm-up
 
-    nms_cuda.nms_mask.launches = nms_cuda.nms_sweep.launches = 0
+    P.nms_cuda.nms_mask.launches = P.nms_cuda.nms_sweep.launches = 0
     records, walls = run_slice(port, predictor, cfg, images, BATCH)
-    launches = {"nms_mask": nms_cuda.nms_mask.launches,
-                "nms_sweep": nms_cuda.nms_sweep.launches}
+    launches = {"nms_mask": P.nms_cuda.nms_mask.launches,
+                "nms_sweep": P.nms_cuda.nms_sweep.launches}
     n_batches = len(walls)
     for name, count in launches.items():
         if count != n_batches:
             fail(f"{name} launched {count} times in {n_batches} batches")
     log("slice", network=cfg.network.NETWORK, classes=cfg.NUM_CLASSES,
-        bucket=list(image_mod.bucket_shape(cfg.tpu.SCALES[0], stride)),
+        bucket=list(P.image_mod.bucket_shape(cfg.tpu.SCALES[0], stride)),
         dtype=cfg.tpu.COMPUTE_DTYPE, images=len(images), batches=n_batches,
         batch_wall_s=walls, launches=launches,
         records_per_image=[len(r) for r in records])
@@ -341,7 +774,7 @@ def main() -> int:
     # the main path's NMS input, for phase 4: the RPN of the same model on
     # the first batch
     def rpn_candidates(pred, c):
-        staged = [image_mod.stage_raw_to_bucket(im, c.tpu.SCALES[0], stride)
+        staged = [P.image_mod.stage_raw_to_bucket(im, c.tpu.SCALES[0], stride)
                   for im in images[:BATCH]]
         batch = pred.batch_put({
             "images": np.stack([s[0] for s in staged]),
@@ -354,7 +787,7 @@ def main() -> int:
             cls, bbox = m.rpn(feat)
             anchors = m._anchors_for(feat.shape[1], feat.shape[2], dev)
             info = torch.as_tensor(batch["im_info"], device=dev)
-            return fg_prob(cls), bbox, anchors, info
+            return P.fg_prob(cls), bbox, anchors, info
 
     te = cfg.TEST
     cand_kw = dict(pre_nms_top_n=te.RPN_PRE_NMS_TOP_N,
@@ -363,22 +796,22 @@ def main() -> int:
     rpn_delta_absmax = float(main_rpn[1].abs().max())
     if not np.isfinite(rpn_delta_absmax):
         fail("non-finite RPN deltas on the main path")
-    main_boxes, _, main_valid = proposal_candidates(*main_rpn, **cand_kw)
+    main_boxes, _, main_valid = P.proposal_candidates(*main_rpn, **cand_kw)
     del main_rpn
 
     # float32 rerun of one batch, TF32 off: propose's kept indices through
     # the kernels against the plain NMS on the same RPN outputs
     cfg32 = cfg.replace(tpu=dataclasses.replace(cfg.tpu,
                                                 COMPUTE_DTYPE="float32"))
-    pred32 = tester.Predictor(build_model(cfg32), params, cfg32)
+    pred32 = P.tester.Predictor(P.build_model(cfg32), params, cfg32)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         fail("float32 Predictor left TF32 on")
     rpn32 = rpn_candidates(pred32, cfg32)
-    boxes32, scores32, valid32 = proposal_candidates(*rpn32, **cand_kw)
-    ki, km = nms_cuda.nms_bitmask(boxes32, valid32, te.RPN_POST_NMS_TOP_N,
+    boxes32, scores32, valid32 = P.proposal_candidates(*rpn32, **cand_kw)
+    ki, km = P.nms_cuda.nms_bitmask(boxes32, valid32, te.RPN_POST_NMS_TOP_N,
                                   te.RPN_NMS_THRESH)
     for b in range(boxes32.shape[0]):
-        ri, rm = nms_padded(boxes32[b], scores32[b], te.RPN_POST_NMS_TOP_N,
+        ri, rm = P.nms_padded(boxes32[b], scores32[b], te.RPN_POST_NMS_TOP_N,
                             te.RPN_NMS_THRESH, valid=valid32[b])
         if not torch.equal(ki[b][km[b]], ri[rm]):
             fail(f"float32 propose: kernel and plain NMS keep different "
@@ -387,15 +820,15 @@ def main() -> int:
                    post_nms_top_n=te.RPN_POST_NMS_TOP_N,
                    nms_thresh=te.RPN_NMS_THRESH, min_size=te.RPN_MIN_SIZE)
     with torch.inference_mode():
-        k_rois, _, k_valid = propose(*rpn32, use_kernel=True, **prop_kw)
-        p_rois, _, p_valid = propose(*rpn32, use_kernel=False, **prop_kw)
+        k_rois, _, k_valid = P.propose(*rpn32, use_kernel=True, **prop_kw)
+        p_rois, _, p_valid = P.propose(*rpn32, use_kernel=False, **prop_kw)
     if not (torch.equal(k_valid, p_valid) and torch.equal(k_rois, p_rois)):
         fail("float32 propose: kernel and plain paths give different RoIs")
     records32, walls32 = run_slice(port, pred32, cfg32, images[:BATCH],
                                    BATCH)
     # the same batch with the plain NMS inside propose: same records
     cfg32p = cfg32.replace(TEST=dataclasses.replace(te, CXX_PROPOSAL=False))
-    pred32p = tester.Predictor(build_model(cfg32p), params, cfg32p)
+    pred32p = P.tester.Predictor(P.build_model(cfg32p), params, cfg32p)
     records32p, _ = run_slice(port, pred32p, cfg32p, images[:BATCH], BATCH)
     for rk, rp in zip(records32, records32p, strict=True):
         if [r["cls"] for r in rk] != [r["cls"] for r in rp] or not (
@@ -410,34 +843,31 @@ def main() -> int:
         records_per_image=[len(r) for r in records32])
     del pred32, rpn32
 
-    # ---- 4. times -------------------------------------------------------------
-    kernels = time_kernels(nms_cuda, main_boxes, main_valid,
-                           te.RPN_POST_NMS_TOP_N, te.RPN_NMS_THRESH)
-    for k in kernels:
-        if k["max_abs_err"] != 0.0:
-            fail(f"{k['name']} disagrees with its plain version at the main "
-                 f"path's shapes (max abs err {k['max_abs_err']})")
-        k.update(route="cuda", source=SOURCE, replaces=REPLACES[k["name"]],
-                 launches=launches[k["name"]])
-    log("times_main_path", shape={"B": int(main_boxes.shape[0]),
-                                  "n": int(main_boxes.shape[1]),
-                                  "max_out": te.RPN_POST_NMS_TOP_N},
-        rpn_delta_absmax=rpn_delta_absmax, kernels=kernels)
-    tr = cfg.TRAIN
-    train_boxes = torch.from_numpy(np.stack(
-        [gen(tr.RPN_PRE_NMS_TOP_N, s)[0] for s in range(2)])).to(dev)
-    train_valid = torch.from_numpy(np.stack(
-        [np.random.RandomState(s).rand(tr.RPN_PRE_NMS_TOP_N) > 0.02
-         for s in range(2)])).to(dev)
-    train = time_kernels(nms_cuda, train_boxes, train_valid,
-                         tr.RPN_POST_NMS_TOP_N, tr.RPN_NMS_THRESH)
-    for k in train:
+    # ---- 5a. inference times -------------------------------------------------
+    inference = time_kernels(P.nms_cuda, main_boxes, main_valid,
+                             te.RPN_POST_NMS_TOP_N, te.RPN_NMS_THRESH)
+    for k in inference:
         if k["max_abs_err"] != 0.0:
             fail(f"{k['name']} disagrees with its plain version at the "
-                 f"training shape")
-    log("times_train_shape", shape={"B": 2, "n": tr.RPN_PRE_NMS_TOP_N,
-                                    "max_out": tr.RPN_POST_NMS_TOP_N},
-        kernels=train)
+                 f"inference shape (max abs err {k['max_abs_err']})")
+    log("times_inference", shape={"B": int(main_boxes.shape[0]),
+                                  "n": int(main_boxes.shape[1]),
+                                  "max_out": te.RPN_POST_NMS_TOP_N},
+        rpn_delta_absmax=rpn_delta_absmax, launches=launches,
+        kernels=inference)
+    del predictor, main_boxes, main_valid
+
+    # ---- 4. the training slice at full width ---------------------------------
+    tcfg = P.generate_config(
+        "resnet101", "PascalVOC", TRAIN__BATCH_IMAGES=BATCH, TRAIN__FLIP=True,
+        tpu__ASSIGN_FUSED=True)
+    tcfg = tcfg.replace(network=dataclasses.replace(tcfg.network,
+                                                    PIXEL_STDS=PIXEL_STDS))
+    ctx = train_slice(P, port, tcfg, dev, args.seed)
+    check_fused_vs_dense(P, ctx, dev)
+
+    # ---- 5b. training times ---------------------------------------------------
+    kernels = train_times(P, ctx, dev, main_anchors)
     log("total", seconds=time.perf_counter() - t_start)
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

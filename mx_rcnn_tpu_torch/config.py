@@ -8,9 +8,10 @@ settings live there).  Field names and defaults follow the reference's
 assembled by a pure ``generate_config`` instead of a mutable easydict.
 
 Fields that only the JAX package's TPU programs read (mesh axes, remat,
-prefetch and loader knobs, ``ASSIGN_FUSED``, ``DEVICE_PREP``) are kept so
-that configs round-trip between the packages; the port's inference path
-ignores them.
+prefetch and loader knobs, ``DEVICE_PREP``) are kept so that configs
+round-trip between the packages; the port ignores them (it always preps
+on the device).  ``ASSIGN_FUSED`` selects the fused assign kernel in the
+port too; its default stays the JAX package's.
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Image staging and device-side prep."""
+"""Image staging and device prep, the synthetic dataset, the roidb and
+the training loader."""

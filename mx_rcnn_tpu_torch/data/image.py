@@ -4,14 +4,16 @@
 
 The host parks raw RGB ``uint8`` pixels in the orientation's static bucket
 (:func:`stage_raw_to_bucket`); the device resamples them to the effective
-extent by cv2's ``resize(fx=s)`` INTER_LINEAR rule, normalises, zero-pads
-and regroups to space-to-depth (:func:`prep_images`).  No cv2: the machine
-with the card has none.
+extent by cv2's ``resize(fx=s)`` INTER_LINEAR rule, mirrors them for a
+flipped record, normalises, zero-pads and regroups to space-to-depth
+(:func:`prep_images`).  No cv2: the machine with the card has none, so the
+host's pre-shrink of an oversized raw reproduces cv2's ``uint8`` resize in
+numpy (:func:`resize_uint8`).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +40,11 @@ def compute_scale(h: int, w: int, scale: Tuple[int, int]) -> float:
 
 
 def _resample(img: torch.Tensor, raw_hw: torch.Tensor, ratio: torch.Tensor,
-              out_h: int, out_w: int) -> torch.Tensor:
+              out_h: int, out_w: int,
+              flip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, Hs, Ws, C) float32 → (B, out_h, out_w, C): bilinear with
-    ``src = (dst + 0.5) · ratio − 0.5``, clamped to the valid raw extent
+    ``src = (dst + 0.5) · ratio − 0.5``, mirrored to ``(w − 1) − src`` on
+    the x axis where ``flip`` (B,) is set, clamped to the valid raw extent
     ``raw_hw`` (B, 2), ``y1 = min(y0 + 1, h − 1)`` — cv2 INTER_LINEAR with
     border replicate, computed in float32 as ``_prep_one`` does."""
     dev = img.device
@@ -49,6 +53,8 @@ def _resample(img: torch.Tensor, raw_hw: torch.Tensor, ratio: torch.Tensor,
     r = ratio.to(torch.float32)[:, None]
     ys = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) * r - 0.5
     xs = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) * r - 0.5
+    if flip is not None:
+        xs = torch.where(flip[:, None], (w - 1.0) - xs, xs)
     ys = torch.minimum(torch.clamp_min(ys, 0.0), h - 1.0)     # (B, out_h)
     xs = torch.minimum(torch.clamp_min(xs, 0.0), w - 1.0)     # (B, out_w)
     y0 = torch.floor(ys)
@@ -76,6 +82,71 @@ def _resample(img: torch.Tensor, raw_hw: torch.Tensor, ratio: torch.Tensor,
     return top * (1.0 - wy) + bot * wy
 
 
+# cv2's fixed-point INTER_LINEAR on uint8: 11-bit weights per axis
+# (INTER_RESIZE_COEF_BITS), a horizontal pass into int32, and a vertical
+# pass that the SIMD code (which covers every element here) rounds as
+# ((S0 >> 4)·b0 >> 16) + ((S1 >> 4)·b1 >> 16), then (+2) >> 2
+_COEF_BITS = 11
+
+
+def _linear_taps(n_src: int, n_dst: int, scale: float, clamp_end: bool):
+    """One axis of cv2's INTER_LINEAR table: source rows/columns (i0, i1)
+    and 11-bit weights (w0, w1).  ``fx = float((d + 0.5)·scale − 0.5)``,
+    ``i0 = floor(fx)``; the x axis pins taps before the start and at or past
+    the last pixel (``clamp_end``), the y axis only clips the row index."""
+    f = ((np.arange(n_dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(
+        np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = f - i0.astype(np.float32)
+    if clamp_end:
+        pin = (i0 < 0) | (i0 >= n_src - 1)
+        f[pin] = 0.0
+        i0 = np.clip(i0, 0, n_src - 1)
+    one = np.float32(1 << _COEF_BITS)
+    w0 = np.rint((np.float32(1.0) - f) * one).astype(np.int64)
+    w1 = np.rint(f * one).astype(np.int64)
+    return (np.clip(i0, 0, n_src - 1), np.clip(i0 + 1, 0, n_src - 1), w0, w1)
+
+
+def _shrink_half_area(im: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """cv2's exact-2× path (INTER_LINEAR switches to INTER_AREA there):
+    each full 2×2 block is ``(sum + 2) >> 2``; a block cut by an odd edge
+    is the rounded (half to even) float mean of the pixels it has."""
+    h, w, c = im.shape
+    hh, ww = min(h, 2 * dh), min(w, 2 * dw)
+    px = np.zeros((2 * dh, 2 * dw, c), np.int64)
+    px[:hh, :ww] = im[:hh, :ww]
+    n = np.zeros((2 * dh, 2 * dw), np.int64)
+    n[:hh, :ww] = 1
+    sums = px.reshape(dh, 2, dw, 2, c).sum(axis=(1, 3))
+    counts = n.reshape(dh, 2, dw, 2).sum(axis=(1, 3))
+    out = np.rint(sums.astype(np.float32)
+                  / counts[..., None].astype(np.float32)).astype(np.int64)
+    fh, fw = min(dh, h // 2), min(dw, w // 2)
+    out[:fh, :fw] = (sums[:fh, :fw] + 2) >> 2
+    return out.astype(np.uint8)
+
+
+def resize_uint8(im: np.ndarray, s: float) -> np.ndarray:
+    """``cv2.resize(im, None, fx=s, fy=s, interpolation=INTER_LINEAR)`` on
+    a (H, W, C) uint8 image, byte for byte, in numpy: output size
+    ``round(dim·s)`` (half to even, as cvRound), the exact-2× INTER_AREA
+    switch, else the fixed-point bilinear above."""
+    h, w, _ = im.shape
+    dh, dw = int(round(h * s)), int(round(w * s))
+    scale = 1.0 / s
+    if abs(scale - round(scale)) < np.finfo(np.float64).eps and \
+            round(scale) == 2:
+        return _shrink_half_area(im, dh, dw)
+    x0, x1, a0, a1 = _linear_taps(w, dw, scale, clamp_end=True)
+    y0, y1, b0, b1 = _linear_taps(h, dh, scale, clamp_end=False)
+    px = im.astype(np.int64)
+    rows = px[:, x0] * a0[None, :, None] + px[:, x1] * a1[None, :, None]
+    v = (((rows[y0] >> 4) * b0[:, None, None]) >> 16) + \
+        (((rows[y1] >> 4) * b1[:, None, None]) >> 16)
+    return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
+
+
 def stage_raw_to_bucket(im: np.ndarray, scale: Tuple[int, int], stride: int):
     """Park RAW uint8 pixels in the orientation's bucket for
     :func:`prep_images`.
@@ -86,21 +157,14 @@ def stage_raw_to_bucket(im: np.ndarray, scale: Tuple[int, int], stride: int):
     ``eh, ew = round(h·s), round(w·s)`` (cv2's output size).
 
     A raw image larger than the bucket is pre-shrunk on the host to its
-    effective size and staged with ratio 1.  Divergence from the JAX
-    package: it shrinks with cv2's uint8 INTER_LINEAR, which uses 11-bit
-    fixed-point weights; here the same bilinear rule runs in float32 and
-    rounds to uint8, so such images may differ by one grey level.  Images
-    inside the bucket are unaffected.
+    effective size with :func:`resize_uint8` (the JAX package's cv2 call,
+    reproduced byte for byte) and staged with ratio 1.
     """
     h, w = im.shape[:2]
     s = compute_scale(h, w, scale)
     hb, wb = bucket_shape(scale, stride, landscape=(w >= h))
     if h > hb or w > wb:
-        eh, ew = int(round(h * s)), int(round(w * s))
-        src = torch.from_numpy(np.ascontiguousarray(im)).to(torch.float32)[None]
-        shrunk = _resample(src, torch.tensor([[h, w]]),
-                           torch.tensor([1.0 / s]), eh, ew)[0]
-        im = shrunk.round().clamp(0, 255).to(torch.uint8).numpy()[:hb, :wb]
+        im = resize_uint8(im, s)[:hb, :wb]
         h, w = im.shape[:2]
         eh, ew, ratio = h, w, 1.0
     else:
@@ -126,16 +190,19 @@ def space_to_depth2(im: np.ndarray) -> np.ndarray:
 def prep_images(staged: torch.Tensor, raw_hw: torch.Tensor,
                 ratio: torch.Tensor, im_info: torch.Tensor, *,
                 pixel_means: Sequence[float], pixel_stds: Sequence[float],
-                s2d: bool, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                s2d: bool, dtype: torch.dtype = torch.float32,
+                flip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Staged raw batch → network input, on the tensors' device.
 
     staged (B, Hb, Wb, 3) uint8, raw_hw (B, 2) int, ratio (B,) float,
-    im_info (B, 3) → (B, Hb, Wb, 3), or (B, Hb/2, Wb/2, 12) with ``s2d``:
-    resampled, ``(v − mean) / std``, zero outside the effective extent.
+    im_info (B, 3), flip (B,) bool or None → (B, Hb, Wb, 3), or (B, Hb/2,
+    Wb/2, 12) with ``s2d``: resampled (mirrored where ``flip``: the raw
+    bytes arrive unflipped, the roidb's boxes already are),
+    ``(v − mean) / std``, zero outside the effective extent.
     """
     b, hb, wb, c = staged.shape
     dev = staged.device
-    v = _resample(staged.to(torch.float32), raw_hw, ratio, hb, wb)
+    v = _resample(staged.to(torch.float32), raw_hw, ratio, hb, wb, flip)
     mean = torch.as_tensor(pixel_means, dtype=torch.float32, device=dev)
     std = torch.as_tensor(pixel_stds, dtype=torch.float32, device=dev)
     v = (v - mean) / std

@@ -40,12 +40,13 @@ class Predictor:
     """A model with bound weights on one device.
 
     ``params``: the flat JAX parameter layout (dict or ``.npz`` path, see
-    ``utils/convert_jax.py``).  ``dtype``: ``"float32"`` keeps the folded
-    weights as loaded; ``"bfloat16"`` rounds them through bfloat16, the
-    JAX package's bf16 parameter variant.  Compute runs in
-    ``cfg.tpu.COMPUTE_DTYPE``; outputs are float32 either way.  With
-    float32 compute on the card, TF32 is switched off for cuDNN and
-    cuBLAS, which would otherwise run float32 convolutions in TF32.
+    ``utils/convert_jax.py``).  ``dtype``: ``"float32"`` keeps the
+    weights as loaded; ``"bfloat16"`` rounds every float32 parameter and
+    FrozenBN statistic through bfloat16, the JAX package's bf16 parameter
+    variant.  Compute runs in ``cfg.tpu.COMPUTE_DTYPE``; outputs are
+    float32 either way.  With float32 compute on the card, TF32 is
+    switched off for cuDNN and cuBLAS, which would otherwise run float32
+    convolutions in TF32.
     """
 
     def __init__(self, model: FasterRCNN, params: Union[Dict[str, np.ndarray],
@@ -63,8 +64,8 @@ class Predictor:
         load_jax_params(model, params)
         if dtype == "bfloat16":
             with torch.no_grad():
-                for p in model.parameters():
-                    p.copy_(p.to(torch.bfloat16))
+                for t in (*model.parameters(), *model.buffers()):
+                    t.copy_(t.to(torch.bfloat16))
         self.model = model.to(self.device).eval()
 
     def batch_put(self, batch: dict) -> dict:

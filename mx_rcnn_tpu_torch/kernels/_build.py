@@ -7,9 +7,10 @@ rebuilds and an unchanged one loads from disk.  Nothing is compiled when a
 module is imported: only a wrapper that is about to launch a kernel on a
 CUDA tensor calls :func:`load`.
 
-Flags: ``sm_90a`` (Hopper), ``-O3`` and ``-fmad=false`` — the NMS IoU must
-round exactly like the plain PyTorch version, so no multiply-add may be
-contracted.  Clear the cache with ``rm -rf mx_rcnn_tpu_torch/_build``.
+Flags: ``sm_90a`` (Hopper), ``-O3`` and ``-fmad=false`` — the IoU of the
+NMS and assign kernels must round exactly like the plain PyTorch version,
+so no multiply-add may be contracted.  Clear the cache with
+``rm -rf mx_rcnn_tpu_torch/_build``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("nms_bitmask",)
+SOURCES = ("nms_bitmask", "assign_iou")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,4 +1,4 @@
-"""ResNet backbone with frozen BN folded into the convs (counterpart of
+"""ResNet backbone with frozen BN (counterpart of
 ``mx_rcnn_tpu/models/backbones.py``: ``StemConvS2D``, ``FrozenBN``,
 ``ScaledConv``, ``Bottleneck``, ``ResNetStage``, ``ResNetConv``,
 ``ResNetStage5``).
@@ -6,15 +6,18 @@
 Modules take and return NHWC at their boundary, like the JAX package; the
 convolutions run on the NCHW view of the same memory (``channels_last``),
 so no layout copy is made.  Frozen BN (``use_global_stats``) is an affine
-per output channel, so it is folded once, when weights are loaded
-(``utils/convert_jax.py``): ``conv(x, W·scale) + shift``.  ``ScaledConv``
-therefore holds a folded weight and a bias; :func:`frozen_bn_fold` is the
-fold.
+per output channel, applied in the folded form ``conv(x, W·scale) +
+shift``, as the JAX package does: ``ScaledConv`` keeps the UNFOLDED
+float32 kernel as its trainable parameter and the four FrozenBN
+statistics as buffers, and folds on every call — ``kernel · scale`` in
+float32, then cast to the compute dtype for the convolution.  Weight decay
+and the elementwise gradient clip therefore act on the same leaf as in the
+JAX package.  ``gamma``/``beta`` are frozen by every ResNet preset; a
+config that trains them is refused (``train/optim.py``).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -28,14 +31,6 @@ RESNET_UNITS = {
 }
 
 
-def frozen_bn_fold(gamma, beta, mean, var, eps: float = BN_EPS):
-    """FrozenBN's (scale, shift) in float32: ``y = x·scale + shift``."""
-    gamma, beta, mean, var = (np.asarray(a, np.float32)
-                              for a in (gamma, beta, mean, var))
-    scale = gamma / np.sqrt(var + np.float32(eps))
-    return scale, beta - mean * scale
-
-
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC tensor → NCHW view (channels_last memory, no copy)."""
     return x.permute(0, 3, 1, 2)
@@ -46,26 +41,40 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class ScaledConv(nn.Module):
-    """Conv with the following FrozenBN folded in: weight (out, in, k, k)
-    = W·scale, bias = shift.  Operates on NCHW views."""
+    """Conv followed by FrozenBN, in the folded form: ``kernel`` (out, in,
+    k, k) float32 is the parameter, ``gamma``/``beta``/``mean``/``var``
+    (out,) float32 are buffers.  ``forward`` convolves with
+    ``(kernel · scale)`` cast to ``dtype`` and adds ``shift``.  Operates on
+    NCHW views."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1,
                  stride: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
         self.padding = kernel_size // 2
-        self.weight = nn.Parameter(torch.zeros(
-            cout, cin, kernel_size, kernel_size, dtype=dtype),
-            requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype),
-                                 requires_grad=False)
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.zeros(
+            cout, cin, kernel_size, kernel_size, dtype=torch.float32))
+        for name, init in (("gamma", 1.0), ("beta", 0.0), ("mean", 0.0),
+                           ("var", 1.0)):
+            self.register_buffer(name, torch.full((cout,), init,
+                                                  dtype=torch.float32))
+
+    def folded(self):
+        """(weight, bias) in the compute dtype: ``kernel · scale`` folded
+        in float32 then cast, and the BN shift."""
+        scale = self.gamma / torch.sqrt(self.var + BN_EPS)
+        shift = self.beta - self.mean * scale
+        weight = self.kernel * scale[:, None, None, None]
+        return weight.to(self.dtype), shift.to(self.dtype)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        weight, bias = self.folded()
+        return F.conv2d(x, weight, bias, self.stride, self.padding)
 
 
 class StemConvS2D(ScaledConv):
-    """The ResNet 7×7/2 stem (+ folded bn1), computed as a 4×4/1 conv on
+    """The ResNet 7×7/2 stem (+ bn1), computed as a 4×4/1 conv on
     the 2×2 space-to-depth input.
 
     With the 7×7 kernel left-padded to 8×8 and regrouped as
@@ -79,28 +88,31 @@ class StemConvS2D(ScaledConv):
     def __init__(self, features: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__(3, features, 7, 2, dtype)
 
-    def s2d_weight(self) -> torch.Tensor:
-        o = self.weight.shape[0]
-        kp = F.pad(self.weight, (1, 0, 1, 0))               # (o, 3, 8, 8)
+    @staticmethod
+    def s2d_weight(weight: torch.Tensor) -> torch.Tensor:
+        """(o, 3, 7, 7) → the (o, 12, 4, 4) kernel of the s2d input."""
+        o = weight.shape[0]
+        kp = F.pad(weight, (1, 0, 1, 0))                    # (o, 3, 8, 8)
         kp = kp.reshape(o, 3, 4, 2, 4, 2)                   # o, c, A, di, B, dj
         return kp.permute(0, 3, 5, 1, 2, 4).reshape(o, 12, 4, 4)
 
     def forward(self, x):                                   # NCHW view
+        weight, bias = self.folded()
         b, c, h, w = x.shape
         if c == 3:
             if h % 2 or w % 2:
-                return F.conv2d(x, self.weight, self.bias, 2, 3)
+                return F.conv2d(x, weight, bias, 2, 3)
             x = (x.reshape(b, 3, h // 2, 2, w // 2, 2)      # b, c, H, di, W, dj
                  .permute(0, 3, 5, 1, 2, 4).reshape(b, 12, h // 2, w // 2))
         elif c != 12:
             raise ValueError(f"stem takes 3- or 12-channel input, got {c}")
         x = F.pad(x, (2, 1, 2, 1))
-        return F.conv2d(x, self.s2d_weight(), self.bias)
+        return F.conv2d(x, self.s2d_weight(weight), bias)
 
 
 class Bottleneck(nn.Module):
-    """ResNet bottleneck: 1×1 → 3×3 (stride) → 1×1, each conv with folded
-    BN, projection shortcut on the first unit of a stage, add, relu."""
+    """ResNet bottleneck: 1×1 → 3×3 (stride) → 1×1, each conv with its
+    FrozenBN, projection shortcut on the first unit of a stage, add, relu."""
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
                  project: bool = False, dtype: torch.dtype = torch.float32):

@@ -1,15 +1,23 @@
-"""Faster R-CNN inference graph (counterpart of
-``mx_rcnn_tpu/models/detector.py``: ``FasterRCNN.predict``/``predict_rpn``,
-``_rcnn_head``, ``_anchors_for``, ``build_model``).
+"""Faster R-CNN graphs (counterpart of ``mx_rcnn_tpu/models/detector.py``:
+``FasterRCNN.__call__``/``predict``/``predict_rpn``, ``_rcnn_head``,
+``_anchors_for``, ``build_model``).
 
-ResNet conv body → RPN head → ``fg_prob`` → ``propose`` (the CUDA NMS
-kernel) → ROIAlign 14×14 → stage 5 → ``cls_score``/``bbox_pred`` →
-softmax.  Classic ResNet only; VGG, FPN and Mask wait for later slices.
+Inference: ResNet conv body → RPN head → ``fg_prob`` → ``propose`` (the
+CUDA NMS kernels) → ROIAlign 14×14 → stage 5 → ``cls_score``/
+``bbox_pred`` → softmax.
+
+Training (``forward``, the reference's ``get_resnet_train``): the same
+body and RPN → batched ``assign_anchor`` (the fused assign kernels when
+``cfg.tpu.ASSIGN_FUSED``) → ``propose`` on the detached RPN outputs with
+the TRAIN settings → gt appended → ``sample_rois`` → the R-CNN head on the
+sampled RoIs → the four losses.  Labels, targets and proposals carry no
+gradient; everything else is autograd.  Classic ResNet only; VGG, FPN and
+Mask wait for later slices, as do ``rpn_train``/``rcnn_train``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -17,10 +25,13 @@ import torch.nn as nn
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.models.backbones import ResNetConv, ResNetStage5
 from mx_rcnn_tpu_torch.models.heads import RCNNOutput, RPNHead
+from mx_rcnn_tpu_torch.models import losses as L
 from mx_rcnn_tpu_torch.models.losses import fg_prob
 from mx_rcnn_tpu_torch.ops.anchors import all_anchors, generate_anchors
+from mx_rcnn_tpu_torch.ops.assign_anchor import assign_anchor
 from mx_rcnn_tpu_torch.ops.proposal import propose
 from mx_rcnn_tpu_torch.ops.roi_align import roi_align
+from mx_rcnn_tpu_torch.ops.sample_rois import sample_rois
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -84,6 +95,87 @@ class FasterRCNN(nn.Module):
                            sampling_ratio=self.cfg.tpu.ROI_SAMPLING_RATIO,
                            mode=self.cfg.tpu.ROI_MODE)
         return self.rcnn_out(self.head_body(pooled))
+
+    def forward(self, images, im_info, gt_boxes, gt_classes, gt_valid, *,
+                draws: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None):
+        """One training forward pass.
+
+        Args:
+          images: (B, H, W, 3|12) NHWC network input (after device prep).
+          im_info: (B, 3) float32 (effective h, effective w, scale).
+          gt_boxes: (B, G, 4) float32; gt_classes: (B, G) int;
+            gt_valid: (B, G) bool.
+          draws: optional ``{"rpn": (fg, bg), "rcnn": (fg, bg)}`` uniforms
+            for ``assign_anchor`` ((B, N) each) and ``sample_rois`` ((B,
+            post_nms + G) each); drawn from ``generator`` when absent.
+
+        Returns ``(total_loss, aux)`` with the JAX package's keys: the four
+        losses and the raw pieces of the six reference metrics.
+        """
+        cfg = self.cfg
+        tr = cfg.TRAIN
+        b = images.shape[0]
+        draws = draws or {}
+        im_info = im_info.to(torch.float32)
+
+        feat = self.backbone(images)
+        anchors = self._anchors_for(feat.shape[1], feat.shape[2], feat.device)
+        rpn_cls, rpn_bbox = self.rpn(feat)                 # (B, N, 2), (B, N, 4)
+
+        with torch.no_grad():
+            assign = assign_anchor(
+                anchors, gt_boxes, gt_valid, im_info,
+                batch_size=tr.RPN_BATCH_SIZE, fg_fraction=tr.RPN_FG_FRACTION,
+                pos_overlap=tr.RPN_POSITIVE_OVERLAP,
+                neg_overlap=tr.RPN_NEGATIVE_OVERLAP,
+                allowed_border=tr.RPN_ALLOWED_BORDER,
+                clobber_positives=tr.RPN_CLOBBER_POSITIVES,
+                iou_bf16=tr.RPN_ASSIGN_IOU_BF16, fused=cfg.tpu.ASSIGN_FUSED,
+                draws=draws.get("rpn"), generator=generator)
+            # the Proposal op: non-differentiable by contract
+            rois, _, roi_valid = propose(
+                fg_prob(rpn_cls), rpn_bbox, anchors, im_info,
+                pre_nms_top_n=tr.RPN_PRE_NMS_TOP_N,
+                post_nms_top_n=tr.RPN_POST_NMS_TOP_N,
+                nms_thresh=tr.RPN_NMS_THRESH, min_size=tr.RPN_MIN_SIZE,
+                use_kernel=tr.CXX_PROPOSAL)
+            # ProposalTarget: append gt, sample BATCH_ROIS RoIs with targets
+            tgt = sample_rois(
+                torch.cat([rois, gt_boxes], dim=1),
+                torch.cat([roi_valid, gt_valid], dim=1),
+                gt_boxes, gt_classes, gt_valid,
+                num_classes=cfg.NUM_CLASSES, batch_rois=tr.BATCH_ROIS,
+                fg_fraction=tr.FG_FRACTION, fg_thresh=tr.FG_THRESH,
+                bg_thresh_hi=tr.BG_THRESH_HI, bg_thresh_lo=tr.BG_THRESH_LO,
+                bbox_means=tr.BBOX_MEANS, bbox_stds=tr.BBOX_STDS,
+                draws=draws.get("rcnn"), generator=generator)
+
+        cls_logits, bbox_out = self._rcnn_head(feat, tgt["rois"])
+
+        rpn_cls_loss = L.softmax_ce_ignore(rpn_cls, assign["label"])
+        rpn_bbox_loss = L.smooth_l1(rpn_bbox, assign["bbox_target"],
+                                    assign["bbox_weight"], sigma=3.0,
+                                    norm=float(tr.RPN_BATCH_SIZE) * b)
+        rcnn_cls_loss = L.softmax_ce_weighted(cls_logits, tgt["label"],
+                                              tgt["label_weight"])
+        rcnn_bbox_loss = L.smooth_l1(bbox_out, tgt["bbox_target"],
+                                     tgt["bbox_weight"], sigma=1.0,
+                                     norm=float(tr.BATCH_ROIS) * b)
+        total = rpn_cls_loss + rpn_bbox_loss + rcnn_cls_loss + rcnn_bbox_loss
+        aux = {
+            "rpn_cls_loss": rpn_cls_loss,
+            "rpn_bbox_loss": rpn_bbox_loss,
+            "rcnn_cls_loss": rcnn_cls_loss,
+            "rcnn_bbox_loss": rcnn_bbox_loss,
+            # raw pieces of the six reference metrics (train/metric.py)
+            "rpn_label": assign["label"],
+            "rpn_pred": torch.argmax(rpn_cls.detach(), dim=-1),
+            "rcnn_label": tgt["label"],
+            "rcnn_pred": torch.argmax(cls_logits.detach(), dim=-1),
+            "rcnn_label_weight": tgt["label_weight"],
+        }
+        return total, aux
 
     def predict(self, images, im_info):
         """Inference forward: NHWC images (B, H, W, 3|12), im_info (B, 3) →

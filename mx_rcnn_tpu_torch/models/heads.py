@@ -6,6 +6,9 @@ RPN: 3×3 conv (512) + relu → sibling 1×1 convs ``rpn_cls_score`` (2A) and
 features flattened to (B, H·W·A, 2) / (B, H·W·A, 4), so the anchor index
 is ``(y·W + x)·A + a`` and the 2A channels are ordered ``a·2 + k`` (a
 torchvision-style (2, A) split would pair the wrong logits).
+
+Parameters are float32 (the trainable leaves); each call casts weight and
+bias to the compute dtype, as flax's ``dtype=`` does.
 """
 
 from __future__ import annotations
@@ -23,19 +26,22 @@ class RPNHead(nn.Module):
         super().__init__()
         self.num_anchors = num_anchors
         self.dtype = dtype
-        self.rpn_conv_3x3 = nn.Conv2d(cin, channels, 3, padding=1, dtype=dtype)
-        self.rpn_cls_score = nn.Conv2d(channels, 2 * num_anchors, 1, dtype=dtype)
-        self.rpn_bbox_pred = nn.Conv2d(channels, 4 * num_anchors, 1, dtype=dtype)
-        for p in self.parameters():
-            p.requires_grad_(False)
+        self.rpn_conv_3x3 = nn.Conv2d(cin, channels, 3, padding=1)
+        self.rpn_cls_score = nn.Conv2d(channels, 2 * num_anchors, 1)
+        self.rpn_bbox_pred = nn.Conv2d(channels, 4 * num_anchors, 1)
+
+    def _conv(self, conv: nn.Conv2d, x):
+        return F.conv2d(x, conv.weight.to(self.dtype),
+                        conv.bias.to(self.dtype), padding=conv.padding)
 
     def forward(self, feat):
         """feat (B, H, W, C) NHWC → (cls_logits (B, H·W·A, 2) f32,
         bbox_deltas (B, H·W·A, 4) f32)."""
         b = feat.shape[0]
-        x = F.relu(self.rpn_conv_3x3(nhwc_to_nchw(feat.to(self.dtype))))
-        cls = nchw_to_nhwc(self.rpn_cls_score(x)).reshape(b, -1, 2)
-        bbox = nchw_to_nhwc(self.rpn_bbox_pred(x)).reshape(b, -1, 4)
+        x = F.relu(self._conv(self.rpn_conv_3x3,
+                              nhwc_to_nchw(feat.to(self.dtype))))
+        cls = nchw_to_nhwc(self._conv(self.rpn_cls_score, x)).reshape(b, -1, 2)
+        bbox = nchw_to_nhwc(self._conv(self.rpn_bbox_pred, x)).reshape(b, -1, 4)
         return cls.to(torch.float32), bbox.to(torch.float32)
 
 
@@ -46,12 +52,13 @@ class RCNNOutput(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.cls_score = nn.Linear(cin, num_classes, dtype=dtype)
-        self.bbox_pred = nn.Linear(cin, 4 * num_classes, dtype=dtype)
-        for p in self.parameters():
-            p.requires_grad_(False)
+        self.cls_score = nn.Linear(cin, num_classes)
+        self.bbox_pred = nn.Linear(cin, 4 * num_classes)
+
+    def _fc(self, fc: nn.Linear, x):
+        return F.linear(x, fc.weight.to(self.dtype),
+                        fc.bias.to(self.dtype)).to(torch.float32)
 
     def forward(self, x):
         x = x.to(self.dtype)
-        return (self.cls_score(x).to(torch.float32),
-                self.bbox_pred(x).to(torch.float32))
+        return self._fc(self.cls_score, x), self._fc(self.bbox_pred, x)

@@ -1,21 +1,23 @@
-"""The weight bridge: the JAX package's flat parameter layout → the port's
-modules.
+"""The weight bridge between the JAX package's flat parameter layout and
+the port's modules, both ways.
 
 The layout is ``mx_rcnn_tpu/train/checkpoint.py:save_params_npz``'s: one
 array per flax leaf under its ``/``-joined path, e.g.
 ``backbone/stage1/unit1/conv1/kernel``.  The port's module paths mirror
 those names (``backbone.stage1.unit1.conv1``), and the mapping is:
 
-* ``ScaledConv``: ``<path>/kernel`` (kh, kw, in, out) HWIO → OIHW, times
-  the FrozenBN scale of the sibling ``bn`` path (``conv1``→``bn1``,
-  ``sc_conv``→``sc_bn``, the stem ``backbone/conv1``→``backbone/bn1``),
-  folded in float32 then cast; the BN shift becomes the bias.  The stem
-  kernel stays (7, 7, 3, 64) under ``backbone/conv1/kernel``.
-* ``nn.Conv2d``: kernel HWIO → OIHW, bias.
-* ``nn.Linear``: flax ``Dense`` kernel (in, out) → weight (out, in), bias.
+* ``ScaledConv``: ``<path>/kernel`` (kh, kw, in, out) HWIO ↔ ``kernel``
+  OIHW, unfolded; the FrozenBN leaves of the sibling ``bn`` path
+  (``conv1``→``bn1``, ``sc_conv``→``sc_bn``, the stem
+  ``backbone/conv1``→``backbone/bn1``) ↔ the buffers ``gamma``, ``beta``,
+  ``mean``, ``var``.  The stem kernel stays (7, 7, 3, 64).
+* ``nn.Conv2d``: kernel HWIO ↔ OIHW, bias.
+* ``nn.Linear``: flax ``Dense`` kernel (in, out) ↔ weight (out, in), bias.
 
-Reads with numpy only.  A missing or an extra key raises with its name: a
-partial load never happens silently.
+Every tensor is float32 on both sides and the maps are transposes, so
+:func:`export_jax_params` ∘ :func:`load_jax_params` is bit-exact.  Reads
+and writes with numpy only.  A missing or an extra key raises with its
+name: a partial load never happens silently.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from mx_rcnn_tpu_torch.models.backbones import ScaledConv, frozen_bn_fold
+from mx_rcnn_tpu_torch.models.backbones import ScaledConv
 
 Params = Dict[str, np.ndarray]
 BN_LEAVES = ("gamma", "beta", "mean", "var")
+OIHW_TO_HWIO = (2, 3, 1, 0)
+HWIO_TO_OIHW = (3, 2, 0, 1)
 
 
 def _bn_path(conv_path: str) -> str:
@@ -40,11 +44,12 @@ def _bn_path(conv_path: str) -> str:
 
 def _leaves(model: nn.Module) -> Iterator[Tuple[str, nn.Module, List[Tuple[str, tuple]]]]:
     """(jax path, module, [(jax key, jax shape)]) for every weight-holding
-    module of the port, in a fixed order."""
+    module of the port, in a fixed order; :func:`_attrs` names the
+    module's tensors in the same order."""
     for name, mod in model.named_modules():
         path = name.replace(".", "/")
         if isinstance(mod, ScaledConv):
-            o, i, kh, kw = mod.weight.shape
+            o, i, kh, kw = mod.kernel.shape
             bn = _bn_path(path)
             yield path, mod, ([(f"{path}/kernel", (kh, kw, i, o))] +
                               [(f"{bn}/{leaf}", (o,)) for leaf in BN_LEAVES])
@@ -57,9 +62,44 @@ def _leaves(model: nn.Module) -> Iterator[Tuple[str, nn.Module, List[Tuple[str, 
             yield path, mod, [(f"{path}/kernel", (i, o)), (f"{path}/bias", (o,))]
 
 
+def _attrs(mod: nn.Module) -> Tuple[str, ...]:
+    return ("kernel",) + BN_LEAVES if isinstance(mod, ScaledConv) \
+        else ("weight", "bias")
+
+
+def _tensors(model: nn.Module) -> Iterator[Tuple[str, str, torch.Tensor]]:
+    """(jax key, torch attribute, tensor) for every tensor the bridge
+    carries."""
+    for _, mod, keys in _leaves(model):
+        for (key, _), attr in zip(keys, _attrs(mod), strict=True):
+            yield key, attr, getattr(mod, attr)
+
+
+def _to_jax(attr: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().to("cpu", torch.float32).numpy()
+    if attr in ("kernel", "weight"):
+        a = a.transpose(OIHW_TO_HWIO) if a.ndim == 4 else a.T
+    return np.ascontiguousarray(a)
+
+
+def _from_jax(attr: str, a: np.ndarray) -> torch.Tensor:
+    a = np.asarray(a, np.float32)
+    if attr in ("kernel", "weight"):
+        a = a.transpose(HWIO_TO_OIHW) if a.ndim == 4 else a.T
+    # np.array copies: the source may be a read-only view
+    return torch.from_numpy(np.array(a, order="C"))
+
+
 def param_shapes(model: nn.Module) -> Dict[str, tuple]:
     """Every key the model consumes, with its shape in the JAX layout."""
     return {k: s for _, _, keys in _leaves(model) for k, s in keys}
+
+
+def jax_names(model: nn.Module) -> Dict[str, str]:
+    """``{torch parameter name: JAX key}`` for every ``nn.Parameter`` (the
+    FrozenBN statistics are buffers and have none)."""
+    ids = {id(p): n for n, p in model.named_parameters()}
+    return {ids[id(t)]: key for key, _, t in _tensors(model) if id(t) in ids}
 
 
 def _as_flat(params: Union[Params, str, os.PathLike]) -> Params:
@@ -71,8 +111,8 @@ def _as_flat(params: Union[Params, str, os.PathLike]) -> Params:
 
 def load_jax_params(model: nn.Module, params: Union[Params, str, os.PathLike]) -> None:
     """Copy a flat JAX parameter dict (or its ``.npz``) into ``model`` in
-    place, folding FrozenBN.  Raises ``KeyError`` naming every missing or
-    unconsumed key and ``ValueError`` naming a key of the wrong shape."""
+    place.  Raises ``KeyError`` naming every missing or unconsumed key and
+    ``ValueError`` naming a key of the wrong shape."""
     flat = _as_flat(params)
     want = param_shapes(model)
     missing = sorted(set(want) - set(flat))
@@ -84,23 +124,16 @@ def load_jax_params(model: nn.Module, params: Union[Params, str, os.PathLike]) -
         got = tuple(np.shape(flat[key]))
         if got != tuple(shape):
             raise ValueError(f"{key}: expected shape {tuple(shape)}, got {got}")
-
-    def f32(key):
-        return np.asarray(flat[key], np.float32)
-
     with torch.no_grad():
-        for path, mod, keys in _leaves(model):
-            if isinstance(mod, ScaledConv):
-                scale, shift = frozen_bn_fold(*(f32(k) for k, _ in keys[1:]))
-                w = f32(keys[0][0]) * scale  # (kh, kw, in, out) · (out,)
-                weight, bias = w.transpose(3, 2, 0, 1), shift
-            elif isinstance(mod, nn.Conv2d):
-                weight, bias = f32(keys[0][0]).transpose(3, 2, 0, 1), f32(keys[1][0])
-            else:
-                weight, bias = f32(keys[0][0]).T, f32(keys[1][0])
-            # np.array copies: the source may be a read-only view
-            mod.weight.copy_(torch.from_numpy(np.array(weight, order="C")))
-            mod.bias.copy_(torch.from_numpy(np.array(bias, order="C")))
+        for key, attr, t in _tensors(model):
+            t.copy_(_from_jax(attr, flat[key]))
+
+
+def export_jax_params(model: nn.Module) -> Params:
+    """The model's weights in the flat JAX layout: float32 numpy arrays
+    under the ``save_params_npz`` keys (the inverse of
+    :func:`load_jax_params`)."""
+    return {key: _to_jax(attr, t) for key, attr, t in _tensors(model)}
 
 
 def random_params(model: nn.Module, seed: int = 0) -> Params:

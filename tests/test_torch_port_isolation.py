@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports without JAX and without the
 JAX package, no file of it names ``jax``, ``flax``, ``cv2`` or
-``mx_rcnn_tpu``, and its entry points never fall back to the CPU when
-asked for the card.  Plus the one test that needs the card (``cuda``
-marker): the NMS kernels against their plain versions.
+``mx_rcnn_tpu``, and its entry points (``Predictor``, ``fit``,
+``train_end2end``) never fall back to the CPU when asked for the card.  Plus the one test that needs the
+card (``cuda`` marker): the NMS kernels against their plain versions.
 """
 
 import ast
@@ -33,7 +33,10 @@ def port_modules():
 
 def test_imports_with_jax_and_the_jax_package_blocked():
     mods = port_modules()
-    assert "mx_rcnn_tpu_torch.kernels.nms_cuda" in mods
+    for mod in ("kernels.nms_cuda", "kernels.assign_cuda", "ops.assign_anchor",
+                "ops.sample_rois", "data.loader", "train.trainer",
+                "train_end2end"):
+        assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"
@@ -67,6 +70,20 @@ def test_predictor_without_a_device_raises_when_there_is_no_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Predictor(None, {}, None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_train_end2end_without_a_card_raises(monkeypatch, tmp_path):
+    from mx_rcnn_tpu_torch import train_end2end
+    from mx_rcnn_tpu_torch.train.trainer import fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = train_end2end.parse_args(["--synthetic", "--prefix",
+                                     str(tmp_path / "e2e")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_end2end.train_net(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit(None, None, {}, None)
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.cuda
