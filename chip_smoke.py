@@ -12,8 +12,10 @@ Phases, each printing its own lines:
    ``nvcc`` builds every kernel source of the port (``csrc/*.cu``), all
    started together.
 2. Kernels vs plain versions on the same CUDA inputs: the NMS case matrix
-   of ``scripts/check_pallas.py`` (kept indices identical to
-   ``nms_padded``), and the assign case matrix of
+   of ``scripts/check_pallas.py`` and the sweep's cases (chains across
+   block edges, ``max_out`` cuts inside and at the edge of a block,
+   invalid rows; :func:`sweep_cases`), kept indices identical to
+   ``nms_padded``, and the assign case matrix of
    ``tests/test_assign_fused.py`` plus the main path's shape (all four
    outputs of the two assign kernels bitwise equal to the dense path).
 3. The inference slice at full width: ResNet-101 Faster R-CNN, VOC (21
@@ -106,6 +108,8 @@ TIMED_STEPS = 3
 # 64, 3 anchors per cell): the shape assign_pallas.py was written for
 FPN_ANCHORS = 155_520
 FPN_STRIDES = (4, 8, 16, 32, 64)
+# IoU threshold of the sweep cases' chains (neighbours overlap at 0.29)
+CHAIN_THRESH = 0.25
 LOSS_KEYS = ("rpn_cls_loss", "rpn_bbox_loss", "rcnn_cls_loss",
              "rcnn_bbox_loss")
 
@@ -127,6 +131,70 @@ def gen(n, seed, spread=800.0, size=150.0):
     boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], 1).astype(np.float32)
     scores = np.sort(rng.rand(n).astype(np.float32))[::-1].copy()
     return boxes, scores
+
+
+def chain_boxes(n: int, chains=()) -> np.ndarray:
+    """(n, 4) float32 boxes, 10-pixel squares in one row, in score order.
+    Inside each index range [a, b) of ``chains`` the boxes step 6 pixels,
+    so each overlaps only its two neighbours (IoU 55/187 = 0.29 with the
+    legacy +1 areas) and greedy NMS at ``CHAIN_THRESH`` keeps a, a+2, ...
+    (A kept, B removed, C kept); every other box stands 20 pixels from the
+    one before and overlaps nothing."""
+    step = np.full(n, 20.0)
+    step[0] = 0.0
+    for a, b in chains:
+        step[a + 1:b] = 6.0
+    x = np.cumsum(step)
+    return np.stack([x, np.zeros(n), x + 10.0, np.full(n, 10.0)],
+                    1).astype(np.float32)
+
+
+def sweep_cases() -> dict:
+    """The sweep's case matrix: {name: (boxes (B, n, 4) float32 in score
+    order, valid (B, n) bool, max_out, thresh)}.  Chains across the 63/64
+    and 127/128 block edges; the max_out cut inside a block, at a block's
+    last row and past n; all boxes disjoint; invalid rows first and inside
+    chains; n of 1, 63, 64, 65 and 4097; three images with different
+    holes."""
+    cases = {}
+
+    def add(name, boxes, valid, max_out, thresh=CHAIN_THRESH):
+        boxes = boxes if boxes.ndim == 3 else boxes[None]
+        valid = valid if valid.ndim == 2 else valid[None]
+        cases[name] = (boxes, valid, max_out, thresh)
+
+    ones = lambda n: np.ones(n, bool)
+    edges = chain_boxes(200, [(58, 70), (121, 134)])
+    add("chains-across-63-64-and-127-128", edges, ones(200), 300)
+    v = ones(200)
+    v[[62, 66, 127]] = False   # the parity flips after each: 63 is kept
+    add("invalid-rows-inside-chains", edges, v, 300)
+    v = ones(130)
+    v[0] = False
+    add("invalid-first-row", chain_boxes(130, [(0, 130)]), v, 300)
+    chain = chain_boxes(300, [(0, 300)])
+    add("chain-cut-inside-a-block", chain, ones(300), 40)  # last kept: 78
+    # rows 0, 1, 3, ..., 63: the cut falls on block 0's last row
+    add("chain-cut-at-a-block-edge", chain_boxes(300, [(1, 300)]), ones(300),
+        33)
+    add("disjoint", chain_boxes(130), ones(130), 300)
+    for max_out in (64, 100, 128):
+        add(f"disjoint-cut-at-{max_out}", chain_boxes(200), ones(200), max_out)
+    for n in (1, 63, 64, 65, 4097):
+        add(f"n={n}-chain", chain_boxes(n, [(0, n)]), ones(n), n // 2 + 3)
+        add(f"n={n}-random", gen(n, n)[0],
+            np.random.RandomState(n).rand(n) > 0.02, 300, 0.7)
+    holes = np.ones((3, 257), bool)
+    holes[0, 64] = False
+    holes[1, [0, 63, 128]] = False
+    holes[2, 100:140] = False
+    add("B=3-chains-holes-per-image",
+        np.stack([chain_boxes(257, [(0, 257)])] * 3), holes, 300)
+    add("B=3-random-holes-per-image",
+        np.stack([gen(1000, s)[0] for s in range(3)]),
+        np.stack([np.random.RandomState(100 + s).rand(1000) > 0.05
+                  for s in range(3)]), 300, 0.7)
+    return cases
 
 
 def cuda_median_ms(fn, per_rep: int = 1, warmup: int = 3) -> float:
@@ -172,8 +240,9 @@ def graph_median_ms(fn, per_rep: int = KERNEL_RUN) -> float:
 # ---- phase 2 ----------------------------------------------------------------
 
 def check_nms_matrix(nms_cuda, nms_padded, dev) -> int:
-    """Every case of check_pallas.py's matrix: the kernel's kept indices
-    must equal the plain version's.  Returns the number of cases."""
+    """Every case of check_pallas.py's matrix and of :func:`sweep_cases`:
+    the kernels' kept indices must equal the plain version's.  Returns the
+    number of cases."""
     def one(name, boxes, scores, max_out, thresh, valid):
         b = torch.from_numpy(boxes).to(dev)
         s = torch.from_numpy(scores).to(dev)
@@ -218,6 +287,33 @@ def check_nms_matrix(nms_cuda, nms_padded, dev) -> int:
         if not torch.equal(ki[b][km[b]], ri[rm]):
             fail(f"NMS mismatch [batched b={b}]: kept {int(km[b].sum())} vs "
                  f"{int(rm.sum())}")
+    cases += 1
+    for name, (boxes, valid, max_out, thresh) in sweep_cases().items():
+        bb = torch.from_numpy(boxes).to(dev)
+        vv = torch.from_numpy(valid).to(dev)
+        ki, km = nms_cuda.nms_bitmask(bb, vv, max_out, thresh)
+        order = torch.arange(bb.shape[1], 0, -1, dtype=torch.float32,
+                             device=dev)
+        for b in range(bb.shape[0]):
+            ri, rm = nms_padded(bb[b], order, max_out, thresh, valid=vv[b])
+            if not (torch.equal(ki[b], ri) and torch.equal(km[b], rm)):
+                fail(f"NMS mismatch [{name}, image {b}]: kept "
+                     f"{int(km[b].sum())} vs {int(rm.sum())}")
+        cases += 1
+    # past the sweep's 48 KB of default shared memory (n = 110 000): a mask
+    # in which each odd row removes the next, row 64w+63 across the edge
+    n = 110_000
+    words = torch.zeros((1, n, nms_cuda.col_blocks(n)), dtype=torch.int64,
+                        device=dev)
+    odd = torch.arange(1, n - 1, 2, device=dev)
+    words[0, odd, (odd + 1) // 64] = torch.ones_like(odd) << ((odd + 1) % 64)
+    want = torch.cat([odd.new_zeros(1), odd, odd.new_full((1,), n - 1)])
+    ki, km = nms_cuda.nms_sweep(words, torch.ones((1, n), dtype=torch.bool,
+                                                  device=dev), len(want) + 7)
+    k = len(want)
+    if not (torch.equal(ki[0, :k].long(), want) and km[0, :k].all()
+            and not km[0, k:].any() and not ki[0, k:].any()):
+        fail("nms_sweep past 48 KB of shared memory: wrong rows kept")
     return cases + 1
 
 

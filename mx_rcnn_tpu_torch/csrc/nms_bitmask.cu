@@ -28,13 +28,28 @@
 //     IOU_OPS) and the write is ~n^2/16 bytes of upper-triangle words
 //     (2.3 MB at n = 6016); by these counts the f32 operations, not the
 //     write, set the bound at the proposal shapes.
-//   * sweep kernel: sequential by nature, so latency bounds it.  One warp
-//     per image; lane l owns words l, l+32, ... of `removed` (shared
-//     memory).  The word of the current 64-row block is broadcast once with
-//     __shfl_sync and then resolved in registers: per kept row, one
-//     broadcast load of its diagonal word, plus each lane ORing its own
-//     later words, with no block-wide barrier.  The kernel writes keep_idx
-//     and keep_mask itself, so no unpack pass follows.
+//   * sweep kernel: sequential by nature, so the chain of dependent steps,
+//     not bytes, bounds it.  It replaces _sweep_kernel's split (resolve an
+//     8-row block in scalar registers, then OR the kept rows into
+//     `removed` in one vector pass) at 64 rows, one 256-thread block per
+//     image, `removed` (one word per 64 rows) in shared memory:
+//       - Warp 0 resolves the 64-row blocks in order, every lane alike.  A
+//         block's rows come from its tile, words w..w+7 of rows 64w..64w+63,
+//         staged in shared memory two groups of four blocks ahead.  One
+//         iteration per kept row: a 32-bit find-first-set, one shared load,
+//         one AND (a removed row never contributes its bits); the kept
+//         row's words w+1..w+7 are ORed into registers for the next seven
+//         blocks (the lookahead), so the chain from block to block never
+//         waits on device memory.
+//       - Warps 1..7 take the kept rows of each group of four blocks and OR
+//         their words past the lookahead into `removed`: thread t owns the
+//         words = t (mod 224), 16 independent coalesced loads in flight, no
+//         atomics; they also stage the tiles of group g+2.  Resolving group
+//         g waits only on group g-2's OR pass (two named barriers per group),
+//         so the OR passes' round trips overlap the resolution.
+//     `removed` starts from the valid flags, 32 per ballot from one
+//     coalesced load per warp.  The kernel writes keep_idx and keep_mask
+//     itself, so no unpack pass follows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,55 +111,212 @@ nms_mask_kernel(const float* __restrict__ boxes, int n, int col_blocks,
   mask[((size_t)b * n + i) * col_blocks + col_block] = bits;
 }
 
-__global__ void __launch_bounds__(32)
+// ---- the sweep ----------------------------------------------------------
+
+constexpr int kSweepThreads = 256;
+constexpr int kWorkers = kSweepThreads - 32;  // warps 1..7; warp 0 resolves
+// blocks per handover from the resolver warp to the workers
+constexpr int kGroup = 4;
+// later words of a block's rows that the resolver ORs itself, from staged
+// tiles: enough that resolving group g waits only on group g-2's OR pass
+constexpr int kLook = 2 * kGroup - 1;
+constexpr int kRowWords = kLook + 1;            // words v..v+kLook of a row
+constexpr int kTileWords = kWord * kRowWords;   // one block's 64 rows
+constexpr int kGroupWords = kGroup * kTileWords;
+// kept rows loaded per burst of independent loads in the OR pass
+constexpr int kBurst = 16;
+// named barriers (0 is __syncthreads): group g handed over, group g's OR
+// pass applied; two of each, by the parity of g
+constexpr int kBarFull = 1;
+constexpr int kBarDone = 3;
+
+// shared memory: the tiles of two groups, `removed`, then per group parity
+// the kept rows and their count, and the stop flag
+constexpr size_t sweep_smem_bytes(int col_blocks) {
+  return (size_t)(2 * kGroupWords + col_blocks) * 8 +
+         (size_t)(2 * kGroup * kWord + 4) * 4;
+}
+
+__device__ __forceinline__ void copy_word_async(
+    unsigned long long* dst, const unsigned long long* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits for every copy this thread has started
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kSweepThreads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kSweepThreads)
+               : "memory");
+}
+
+// Starts the copies of group g's tiles (for each of its blocks v, words
+// v..v+kLook of rows 64v..64v+63, row-major: 64 contiguous bytes a row)
+// into the group's slot, word t, t+stride, ... by this thread.
+__device__ __forceinline__ void stage_group(const unsigned long long* m,
+                                            int n, int col_blocks, int g,
+                                            unsigned long long* tiles, int t,
+                                            int stride) {
+  unsigned long long* slot = tiles + (g & 1) * kGroupWords;
+  for (int i = t; i < kGroupWords; i += stride) {
+    const int v = g * kGroup + i / kTileWords;
+    const int row = v * kWord + i % kTileWords / kRowWords;
+    const int word = v + i % kRowWords;
+    if (row < n && word < col_blocks)
+      copy_word_async(slot + i, m + (size_t)row * col_blocks + word);
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
 nms_sweep_kernel(const unsigned long long* __restrict__ mask,
                  const unsigned char* __restrict__ valid, int n,
                  int col_blocks, int max_out, int* __restrict__ keep_idx,
                  unsigned char* __restrict__ keep_mask) {
-  extern __shared__ unsigned long long removed[];
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* tiles = smem;  // two groups, by parity
+  unsigned long long* removed = tiles + 2 * kGroupWords;
+  int* kept_rows = reinterpret_cast<int*>(removed + col_blocks);  // [2][256]
+  int* kept_count = kept_rows + 2 * kGroup * kWord;               // [2]
+  int* stop_flag = kept_count + 2;                                // [2]
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const unsigned long long* m = mask + (size_t)b * n * col_blocks;
   const unsigned char* v = valid + (size_t)b * n;
   int* out_idx = keep_idx + (size_t)b * max_out;
   unsigned char* out_ok = keep_mask + (size_t)b * max_out;
 
-  // invalid rows start out removed
-  for (int w = lane; w < col_blocks; w += 32) {
-    unsigned long long word = 0ull;
-    const int base = w * kWord;
-    const int end = min(kWord, n - base);
-    for (int j = 0; j < end; ++j)
-      if (!v[base + j]) word |= 1ull << j;
-    removed[w] = word;
+  stage_group(m, n, col_blocks, 0, tiles, tid, kSweepThreads);
+  stage_group(m, n, col_blocks, 1, tiles, tid, kSweepThreads);
+  // invalid rows start out removed; rows past n stay 0 and are never read
+  for (int w = tid / 32; w < col_blocks; w += kSweepThreads / 32) {
+    const int i = w * kWord + lane;
+    const unsigned lo = __ballot_sync(kFullWarp, i < n && !v[i]);
+    const unsigned hi = __ballot_sync(kFullWarp, i + 32 < n && !v[i + 32]);
+    if (lane == 0) removed[w] = (unsigned long long)hi << 32 | lo;
   }
+  cp_async_wait_all();
+  __syncthreads();
 
-  int cnt = 0;  // uniform across the warp
-  for (int w = 0; w < col_blocks && cnt < max_out; ++w) {
-    // the owner lane hands word w to the whole warp; only the owner ever
-    // wrote it, so no barrier is needed
-    const int owner = w & 31;
-    unsigned long long cur =
-        __shfl_sync(kFullWarp, lane == owner ? removed[w] : 0ull, owner);
-    const int end = min(kWord, n - w * kWord);
-    for (int j = 0; j < end; ++j) {
-      if ((cur >> j) & 1ull) continue;
-      const int i = w * kWord + j;
-      if (lane == 0) {
-        out_idx[cnt] = i;
-        out_ok[cnt] = 1;
+  if (tid < 32) {
+    // The resolver: every lane resolves every block from shared memory and
+    // stores the same values, so all is uniform.  pend[d] holds what the
+    // kept rows of the last kLook blocks remove from word w+d: the workers
+    // OR only words more than kLook right of a row's block into `removed`.
+    unsigned long long pend[kLook];
+#pragma unroll
+    for (int d = 0; d < kLook; ++d) pend[d] = 0ull;
+    int cnt = 0, g = 0;
+    bool stop = false;
+    for (;; ++g) {
+      // removed holds the ORs of every block up to group g-2's end, and the
+      // workers have staged group g's tiles
+      if (g >= 2) bar_sync(kBarDone + (g & 1));
+      int* rows_out = kept_rows + (g & 1) * kGroup * kWord;
+      int nrows = 0;
+      for (int i = 0; i < kGroup && !stop; ++i) {
+        const int w = g * kGroup + i;
+        const unsigned long long* tile =
+            tiles + (g & 1) * kGroupWords + i * kTileWords;
+        const int rows = n - w * kWord;
+        const unsigned long long live =
+            ~(removed[w] | pend[0]) &
+            (rows >= kWord ? ~0ull : (1ull << rows) - 1ull);
+        unsigned long long next[kLook];
+#pragma unroll
+        for (int d = 0; d < kLook; ++d) next[d] = 0ull;
+        // rows 0..31, then 32..63: the chain from one kept row to the next
+        // is a 32-bit find-first-set, one shared load and one AND
+        unsigned lo = (unsigned)live, hi = (unsigned)(live >> 32);
+        while (lo && cnt < max_out) {
+          const int j = __ffs(lo) - 1;
+          const unsigned long long* row = tile + j * kRowWords;
+          const unsigned long long diag = row[0];
+          lo &= (lo - 1u) & ~(unsigned)diag;  // drop j and the rows it removes
+          hi &= ~(unsigned)(diag >> 32);
+#pragma unroll
+          for (int d = 0; d < kLook; ++d) next[d] |= row[d + 1];
+          out_idx[cnt] = rows_out[nrows] = w * kWord + j;
+          out_ok[cnt] = 1;
+          ++cnt;
+          ++nrows;
+        }
+        while (hi && cnt < max_out) {
+          const int j = 32 + __ffs(hi) - 1;
+          const unsigned long long* row = tile + j * kRowWords;
+          hi &= (hi - 1u) & ~(unsigned)(row[0] >> 32);
+#pragma unroll
+          for (int d = 0; d < kLook; ++d) next[d] |= row[d + 1];
+          out_idx[cnt] = rows_out[nrows] = w * kWord + j;
+          out_ok[cnt] = 1;
+          ++cnt;
+          ++nrows;
+        }
+#pragma unroll
+        for (int d = 0; d + 1 < kLook; ++d) pend[d] = pend[d + 1] | next[d];
+        pend[kLook - 1] = next[kLook - 1];
+        stop = cnt >= max_out || w + 1 >= col_blocks;
       }
-      ++cnt;
-      const unsigned long long* row = m + (size_t)i * col_blocks;
-      cur |= row[w];  // same address in every lane: one broadcast load
-      for (int ww = lane; ww < col_blocks; ww += 32)
-        if (ww > w) removed[ww] |= row[ww];
-      if (cnt >= max_out) break;
+      kept_count[g & 1] = nrows;
+      stop_flag[g & 1] = stop;
+      __syncwarp();
+      bar_arrive(kBarFull + (g & 1));
+      if (stop) break;
     }
-  }
-  for (int s = cnt + lane; s < max_out; s += 32) {
-    out_idx[s] = 0;
-    out_ok[s] = 0;
+    if (g >= 1) bar_sync(kBarDone + ((g - 1) & 1));  // the workers' last pass
+    for (int s = cnt + lane; s < max_out; s += 32) {
+      out_idx[s] = 0;
+      out_ok[s] = 0;
+    }
+  } else {
+    // The workers: per group, stage the tiles of group g+2 into group g's
+    // slot (the resolver is done with it), then OR the kept rows' words
+    // into `removed`.  Thread t owns the words ww = t (mod 224) in every
+    // pass, so no two threads ever update one word; its loads go out
+    // kBurst at a time, independent and coalesced.
+    const int wt = tid - 32;
+    for (int g = 0;; ++g) {
+      bar_sync(kBarFull + (g & 1));
+      if (stop_flag[g & 1]) break;  // nothing is resolved after this group
+      stage_group(m, n, col_blocks, g + 2, tiles, wt, kWorkers);
+      const int nrows = kept_count[g & 1];
+      const int* rows = kept_rows + (g & 1) * kGroup * kWord;
+      const int first = g * kGroup + kLook + 1;
+      if (nrows)
+        for (int ww = first + ((wt - first) % kWorkers + kWorkers) % kWorkers;
+             ww < col_blocks; ww += kWorkers) {
+          const unsigned long long* col = m + ww;
+          unsigned long long acc = 0ull;
+          for (int t0 = 0; t0 < nrows; t0 += kBurst) {
+            unsigned long long x[kBurst];
+#pragma unroll
+            for (int t = 0; t < kBurst; ++t) {
+              const int r = t0 + t < nrows ? rows[t0 + t] : -1;
+              // a row's words up to kLook right of its block are pend's
+              x[t] = r >= 0 && ww > r / kWord + kLook
+                         ? col[(size_t)r * col_blocks] : 0ull;
+            }
+#pragma unroll
+            for (int t = 0; t < kBurst; ++t) acc |= x[t];
+          }
+          removed[ww] |= acc;
+        }
+      cp_async_wait_all();  // group g+2's tiles, before the handover
+      bar_arrive(kBarDone + (g & 1));
+    }
   }
 }
 
@@ -169,8 +341,14 @@ int mxr_nms_sweep(const unsigned long long* mask, const unsigned char* valid,
                   int batch, int n, int max_out, int* keep_idx,
                   unsigned char* keep_mask, void* stream) {
   const int col_blocks = (n + kWord - 1) / kWord;
-  const size_t smem = (size_t)col_blocks * sizeof(unsigned long long);
-  nms_sweep_kernel<<<batch, 32, smem, (cudaStream_t)stream>>>(
+  const size_t smem = sweep_smem_bytes(col_blocks);
+  if (smem > 48 * 1024) {  // past the default: opt in (227 KB on Hopper)
+    const cudaError_t e = cudaFuncSetAttribute(
+        nms_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  nms_sweep_kernel<<<batch, kSweepThreads, smem, (cudaStream_t)stream>>>(
       mask, valid, n, col_blocks, max_out, keep_idx, keep_mask);
   return (int)cudaGetLastError();
 }

@@ -6,11 +6,18 @@ kernels, each behind its own wrapper with its own launch count:
 * :func:`nms_mask` — phase A (``_suppress_kernel``): the upper-triangle
   suppression bitmask of score-sorted boxes, 64-bit words;
 * :func:`nms_sweep` — phase B (``_sweep_kernel`` + ``_nms_post``): the
-  greedy sweep, writing ``(keep_idx, keep_mask)`` directly.
+  greedy sweep, writing ``(keep_idx, keep_mask)`` directly.  One block of
+  256 threads per image walks the 64-row blocks in order, as
+  ``_sweep_kernel`` walks its 8-row ones: one warp resolves each block
+  serially from its rows' next eight words, staged in shared memory ahead
+  of it, and carries the kept rows' next seven words in registers; the
+  other seven warps OR the kept rows' later words into the shared
+  ``removed`` words, four blocks at a time, while the resolver goes on —
+  so no step of the chain waits on device memory.
 
 :func:`nms_bitmask` chains them: one launch of each per batch, whatever
 the batch size.  The TPU kernel's 8×8 ``diagp`` table (``_nms_prep``) has
-no counterpart: the diagonal block is part of the mask here.
+no counterpart: the diagonal tile is part of the mask here.
 
 Every wrapper serves a CPU tensor with its plain PyTorch version
 (:func:`suppression_mask_plain`, :func:`sweep_plain`, and
@@ -32,7 +39,9 @@ from mx_rcnn_tpu_torch.ops.boxes import bbox_overlaps
 from mx_rcnn_tpu_torch.ops.nms import nms_padded_batch
 
 WORD = 64
-# the sweep keeps one word per 64 boxes in shared memory (48 KB default)
+# the sweep keeps one word per 64 boxes in shared memory: 48 KB at this
+# limit, beside its 34 KB of staged tiles and kept rows (the launcher opts
+# in to more than the 48 KB default)
 MAX_BOXES = WORD * (48 * 1024 // 8)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

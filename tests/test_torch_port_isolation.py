@@ -2,7 +2,8 @@
 JAX package, no file of it names ``jax``, ``flax``, ``cv2`` or
 ``mx_rcnn_tpu``, and its entry points (``Predictor``, ``fit``,
 ``train_end2end``) never fall back to the CPU when asked for the card.  Plus the one test that needs the
-card (``cuda`` marker): the NMS kernels against their plain versions.
+card (``cuda`` marker): the NMS kernels against their plain versions, and
+a chain cut inside a 64-row block.
 """
 
 import ast
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import mx_rcnn_tpu_torch
 from mx_rcnn_tpu_torch.eval.tester import Predictor, resolve_device
 
@@ -105,3 +107,10 @@ def test_nms_kernels_match_plain_versions_on_the_card():
     for i in range(b):
         ri, rm = nms_padded(boxes[i], order, max_out, thresh, valid=valid[i])
         assert torch.equal(ki[i][km[i]], ri[rm])
+    # a chain (A kept, B removed, C kept) cut inside a 64-row block: kept
+    # rows 0, 2, ..., 78, the 40th in block 1
+    chain = torch.from_numpy(chip_smoke.chain_boxes(300, [(0, 300)])).cuda()
+    ones = torch.ones(1, 300, dtype=torch.bool, device="cuda")
+    ki, km = nms_cuda.nms_bitmask(chain[None], ones, 40, chip_smoke.CHAIN_THRESH)
+    assert km.all()
+    assert torch.equal(ki[0].long(), torch.arange(0, 80, 2, device="cuda"))
