@@ -15,7 +15,10 @@ Phases, each printing its own lines:
    of ``scripts/check_pallas.py`` and the sweep's cases (chains across
    block edges, ``max_out`` cuts inside and at the edge of a block,
    invalid rows; :func:`sweep_cases`), kept indices identical to
-   ``nms_padded``, and the assign case matrix of
+   ``nms_padded``; the mask's threshold-band cases (IoUs at and one float32
+   step beside the threshold, clamped unions, coordinates at 1e5 and 1e-3,
+   thresholds 0 and 1; :func:`mask_band_cases`), ``nms_mask``'s words
+   bitwise equal to ``suppression_mask_plain``'s; and the assign case matrix of
    ``tests/test_assign_fused.py`` plus the main path's shape (all four
    outputs of the two assign kernels bitwise equal to the dense path).
 3. The inference slice at full width: ResNet-101 Faster R-CNN, VOC (21
@@ -42,7 +45,8 @@ Phases, each printing its own lines:
    events around eager calls (median of ``REPS`` runs after warm-up), and
    the least time the card could take (bound): the NMS pair at the
    inference shape (6000 → 300) and at the training shape (12000 → 2000)
-   on the model's RPN boxes, the assign pair on the training batch and at
+   on the model's RPN boxes and at the training shape on identical boxes
+   (every IoU 1), the assign pair on the training batch and at
    G = 100 valid gt for N = 21 888 and FPN's N = 155 520; and the median
    train step wall time with the fused and the dense assign.
 6. One ``{"kernels": [...]}`` JSON line, then the last line
@@ -197,6 +201,108 @@ def sweep_cases() -> dict:
     return cases
 
 
+def iou32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32 IoU of (..., 4) boxes, rounded operation by operation in the
+    order of ``ops/boxes.py:bbox_overlaps`` (legacy +1 areas, union clamped
+    at 1e-14)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    one = np.float32(1)
+    iw = np.maximum(np.minimum(a[..., 2], b[..., 2])
+                    - np.maximum(a[..., 0], b[..., 0]) + one, np.float32(0))
+    ih = np.maximum(np.minimum(a[..., 3], b[..., 3])
+                    - np.maximum(a[..., 1], b[..., 1]) + one, np.float32(0))
+    inter = iw * ih
+    area_a = (a[..., 2] - a[..., 0] + one) * (a[..., 3] - a[..., 1] + one)
+    area_b = (b[..., 2] - b[..., 0] + one) * (b[..., 3] - b[..., 1] + one)
+    return inter / np.maximum(area_a + area_b - inter, np.float32(1e-14))
+
+
+def band_pairs(t: float, o: float, dx: float, dy: float) -> list:
+    """Pairs of boxes (a, b) whose float32 IoU straddles ``t``: box a is
+    [o, o, o+dx, o+dy]; box b moves one float32 coordinate (its x1, its x2
+    or its y1) ulp by ulp across the point where the IoU crosses t.  Kept
+    per coordinate: the last pair with IoU <= t, the first with IoU > t,
+    every pair with IoU == float32(t), and the pairs 2^k ulps (k = 0..8)
+    either side of the crossing."""
+    t32 = np.float32(t)
+    a = np.float32([o, o, o + dx, o + dy])
+    walks = (  # b as a function of the walked value v, and v's range
+        (lambda v: [v, a[1], v + np.float32(dx), a[3]], a[0], a[2] + 1),
+        (lambda v: [a[0], a[1], v, a[3]], a[0] - 1, a[2]),
+        (lambda v: [a[0], v, a[2], v + np.float32(dy)], a[1], a[3] + 1))
+    bits = lambda v: int(np.float32(v).view(np.int32))
+    at = lambda i: np.int32(i).view(np.float32)
+    pairs = []
+    for walk, lo, hi in walks:
+        box = lambda i: np.float32(walk(at(i)))
+        over = lambda i: bool(iou32(a, box(i)) > t32)
+        lo, hi = bits(lo), bits(hi)
+        if over(lo) == over(hi):
+            continue
+        while hi - lo > 1:           # bisection over adjacent float32s
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if over(mid) == over(lo) else (lo, mid)
+        keep = {lo, hi}
+        under, other = (hi, lo) if over(lo) else (lo, hi)
+        i = under                    # the pairs at exactly float32(t)
+        while iou32(a, box(i)) == t32:
+            keep.add(i)
+            i += under - other
+        keep |= {x + s * 2 ** k for x in (lo, hi) for s in (-1, 1)
+                 for k in range(9)}
+        pairs += [(a, box(i)) for i in sorted(keep)]
+    return pairs
+
+
+def mask_band_cases() -> dict:
+    """The mask's threshold-band case family: {name: (boxes (1, n, 4)
+    float32, thresh)}.  IoUs at and next to each threshold, found by
+    walking a coordinate ulp by ulp (:func:`band_pairs`), at thresholds
+    0.7, 0.5, 0.3, 0.25, 0.01 and 0.99 and n of 65, 127 and 4097 (a last,
+    partial tile of 1, 63 and 1 columns, beside the diagonal tiles);
+    zero-area, inverted and tiny boxes whose union is clamped at 1e-14;
+    coordinates at the scale of 1e5 and of 1e-3; thresholds 0.0 and 1.0.
+    Rows cycle through the pairs, so every tile holds pairs of the band."""
+    cases = {}
+
+    def rows(pairs, n):
+        flat = np.stack([box for pair in pairs for box in pair])
+        return np.resize(flat, (n, 4))[None].astype(np.float32)
+
+    def band(t):                     # the pairs nearest t first
+        pairs = [p for o, dx, dy in ((10.0, 99.0, 99.0), (300.5, 47.0, 131.0),
+                                     (1000.25, 15.0, 15.0))
+                 for p in band_pairs(t, o, dx, dy)]
+        return sorted(pairs, key=lambda p: abs(float(iou32(*p)) - t))
+
+    for t in (0.7, 0.5, 0.3, 0.25, 0.01, 0.99):
+        pairs = band(t)
+        for n in (65, 127, 4097):
+            cases[f"band-t={t}-n={n}"] = (rows(pairs, n), t)
+    rng = np.random.RandomState(6)
+    # legacy width x2 - x1 + 1 of 0, < 0, and 2^-24 or 2^-23 (areas under
+    # 1e-14, so the union is clamped), beside ordinary boxes
+    x1 = rng.randint(0, 40, 127).astype(np.float32)
+    y1 = rng.randint(0, 40, 127).astype(np.float32)
+    ext = np.float32([0.0, -1.0, -3.5, -1.0 + 2.0 ** -24, -1.0 + 2.0 ** -23,
+                      -0.5, 9.0, 30.0])
+    deg = np.stack([x1, y1, x1 + rng.choice(ext, 127),
+                    y1 + rng.choice(ext, 127)], 1)
+    deg[::7] = [0, 0, -1 + 2.0 ** -24, -1 + 2.0 ** -24]   # identical tiny ones
+    cases["degenerate-boxes-t=0.3"] = (deg[None].astype(np.float32), 0.3)
+    for scale, t, side in ((1e5, 0.7, 99.0), (1e-3, 0.999, 2e-3)):
+        base = (scale * (1 + rng.rand(60, 2))).astype(np.float32)
+        rand = np.concatenate(
+            [base, base + (scale * rng.rand(60, 2)).astype(np.float32)], 1)
+        pairs = band_pairs(t, scale, side, side) + list(
+            zip(rand[::2], rand[1::2]))
+        cases[f"scale-{scale:g}-t={t}"] = (rows(pairs, 127), t)
+    for t in (0.0, 1.0):             # no fast decision in the kernel
+        pairs = band(0.7) + [(b, b) for b in deg[:20]]
+        cases[f"t={t}-n=127"] = (rows(pairs, 127), t)
+    return cases
+
+
 def cuda_median_ms(fn, per_rep: int = 1, warmup: int = 3) -> float:
     """Median over ``REPS`` timed runs of the device time of one call, each
     run ``per_rep`` calls back to back between two CUDA events (several
@@ -315,6 +421,30 @@ def check_nms_matrix(nms_cuda, nms_padded, dev) -> int:
             and not km[0, k:].any() and not ki[0, k:].any()):
         fail("nms_sweep past 48 KB of shared memory: wrong rows kept")
     return cases + 1
+
+
+def check_mask_band(nms_cuda, nms_padded, dev) -> int:
+    """Every case of :func:`mask_band_cases`: ``nms_mask``'s upper words
+    bitwise equal to ``suppression_mask_plain``'s, and ``nms_bitmask``'s
+    kept rows equal to ``nms_padded``'s.  Returns the number of cases."""
+    cases = mask_band_cases()
+    for name, (boxes, thresh) in cases.items():
+        bb = torch.from_numpy(boxes).to(dev)
+        n = bb.shape[1]
+        diff = (nms_cuda.nms_mask(bb, thresh)
+                ^ nms_cuda.suppression_mask_plain(bb, thresh))
+        up = upper_blocks(n, nms_cuda.col_blocks(n), dev)
+        if diff[:, up].any():
+            fail(f"nms_mask disagrees with its plain version [{name}] in "
+                 f"{int((diff[:, up] != 0).sum())} words")
+        valid = torch.ones((1, n), dtype=torch.bool, device=dev)
+        ki, km = nms_cuda.nms_bitmask(bb, valid, 300, thresh)
+        order = torch.arange(n, 0, -1, dtype=torch.float32, device=dev)
+        ri, rm = nms_padded(bb[0], order, 300, thresh, valid=valid[0])
+        if not (torch.equal(ki[0], ri) and torch.equal(km[0], rm)):
+            fail(f"NMS mismatch [{name}]: kept {int(km.sum())} vs "
+                 f"{int(rm.sum())}")
+    return len(cases)
 
 
 def assign_case(rng, anchors, im_hw, n_gt, g, size=(20.0, 60.0)):
@@ -756,6 +886,21 @@ def train_times(P, ctx, dev, main_anchors) -> list:
         "nms_n": int(boxes.shape[1]), "max_out": tr.RPN_POST_NMS_TOP_N},
         kernels=kernels)
 
+    # the same shape on collapsed boxes (the matrix's identical-boxes case):
+    # every IoU is 1, far from the threshold
+    same = torch.tensor([10.0, 10.0, 60.0, 60.0], device=dev).expand(
+        boxes.shape).contiguous()
+    rows = time_kernels(P.nms_cuda, same, torch.ones_like(valid),
+                        tr.RPN_POST_NMS_TOP_N, tr.RPN_NMS_THRESH)
+    for k in rows:
+        if k["max_abs_err"] != 0.0:
+            fail(f"{k['name']} disagrees with its plain version on "
+                 f"identical boxes")
+    log("times_identical", shape={"B": int(same.shape[0]),
+                                  "nms_n": int(same.shape[1]),
+                                  "max_out": tr.RPN_POST_NMS_TOP_N},
+        kernels=rows)
+
     # G = 100 valid gt, the most the training config pads to
     for a in (main_anchors, fpn_anchors(P.all_anchors, P.generate_anchors)):
         per = [assign_case(np.random.RandomState(50 + b), a, (600, 1000),
@@ -832,6 +977,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = check_nms_matrix(P.nms_cuda, P.nms_padded, dev)
     log("nms_matrix", cases=cases, identical=True,
+        seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cases = check_mask_band(P.nms_cuda, P.nms_padded, dev)
+    log("mask_band", cases=cases, identical=True,
         seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     main_anchors = P.all_anchors(608 // 16, 1024 // 16, 16, P.generate_anchors())

@@ -20,14 +20,36 @@
 // version's elementwise PyTorch ops bit for bit.
 //
 // What bounds it on this card:
-//   * mask kernel: one thread per row, 64 column boxes staged in shared
-//     memory per block; blocks left of the diagonal exit at once because the
-//     sweep never reads them.  Work is n(n-1)/2 IoUs of 16 f32 operations
-//     each (per axis min, max, sub, add; two clamps; the product; the
-//     union's add, sub and clamp; the divide; the compare: chip_smoke.py's
-//     IOU_OPS) and the write is ~n^2/16 bytes of upper-triangle words
-//     (2.3 MB at n = 6016); by these counts the f32 operations, not the
-//     write, set the bound at the proposal shapes.
+//   * mask kernel: n(n-1)/2 IoUs of 16 f32 operations each (per axis min,
+//     max, sub, add; two clamps; the product; the union's add, sub and
+//     clamp; the divide; the compare: chip_smoke.py's IOU_OPS) and a write
+//     of ~n^2/16 bytes of upper-triangle words (2.3 MB at n = 6016); by
+//     these counts the f32 operations, not the write, set the bound.  On
+//     the card the min/max/shift pipe, at half the rate of the add/multiply
+//     pipe, is the limit, so the design cuts instructions per IoU (about
+//     20: 7 FMNMX, 6 FADD, 1 FMUL, 2 FFMA, 2 SHF, 2/3 LDS) and idle CTAs:
+//       - only the triangle is launched: one 128-thread CTA per (image,
+//         64-row block r, strip of 4 column tiles from r on), decoded from
+//         the linear block index in closed form; the strip's 256 column
+//         boxes are staged once in shared memory (a float4 and its area),
+//         and each thread keeps two rows (t, t + 32) in registers, so one
+//         pair of broadcast loads serves two IoUs;
+//       - a fully unrolled 64-column loop with compile-time bit positions:
+//         each decision's sign bit is shifted into a 32-bit half by one
+//         funnel shift; the diagonal tile and a last, partial tile are
+//         masked afterwards, never by loop bounds;
+//       - no division outside a band around the threshold.  With u the
+//         clamped union and t_hi, t_lo = t(1 +- 2^-20) rounded to float,
+//         the signs of inter - t_hi*u and inter - t_lo*u each come from one
+//         FMA (exact product, one rounding, so the sign is exact): >= 0
+//         sets the bit, < 0 clears it, anything else takes the exact
+//         __fdiv_rn(inter, u) > t after the loop.  Exact because rounding
+//         t(1 +- 2^-20) costs at most 2^-24 relative, so outside the band
+//         the real quotient lies at least 2^-21 t (four ulps) from t and
+//         rounding it cannot cross t.  Allowed only for 2^-60 <= t < 1
+//         (t_hi, t_lo normal; 0, 1, negative or NaN t: every IoU exact)
+//         and only in a CTA whose boxes all have |coordinates| <= 2^60, so
+//         that no term is inf or NaN (else that CTA is exact throughout).
 //   * sweep kernel: sequential by nature, so the chain of dependent steps,
 //     not bytes, bounds it.  It replaces _sweep_kernel's split (resolve an
 //     8-row block in scalar registers, then OR the kept rows into
@@ -65,50 +87,135 @@ __device__ __forceinline__ float box_area(float x1, float y1, float x2,
                    __fadd_rn(__fsub_rn(y2, y1), 1.0f));
 }
 
-__global__ void __launch_bounds__(kWord)
-nms_mask_kernel(const float* __restrict__ boxes, int n, int col_blocks,
-                float thresh, unsigned long long* __restrict__ mask) {
-  const int col_block = blockIdx.x;
-  const int row_block = blockIdx.y;
-  const int b = blockIdx.z;
-  if (col_block < row_block) return;  // below the diagonal: never read
+// ---- the mask -----------------------------------------------------------
 
-  const int row_size = min(n - row_block * kWord, kWord);
-  const int col_size = min(n - col_block * kWord, kWord);
-  const float* img = boxes + (size_t)b * n * 4;
+constexpr int kStrip = 4;                      // column tiles per CTA
+constexpr int kPair = 32;                      // a thread's rows: t, t + 32
+constexpr int kMaskThreads = kPair * kStrip;   // thread (rows t, t+32; tile k)
 
-  __shared__ float cx1[kWord], cy1[kWord], cx2[kWord], cy2[kWord], ca[kWord];
-  if (threadIdx.x < col_size) {
-    const float* p = img + (size_t)(col_block * kWord + threadIdx.x) * 4;
-    cx1[threadIdx.x] = p[0];
-    cy1[threadIdx.x] = p[1];
-    cx2[threadIdx.x] = p[2];
-    cy2[threadIdx.x] = p[3];
-    ca[threadIdx.x] = box_area(p[0], p[1], p[2], p[3]);
+// CTAs per image: row block r has ceil((cb - r) / kStrip) strips.  With
+// m = cb - r, the rows m = g*kStrip + 1 .. (g+1)*kStrip form group g, of
+// g + 1 strips each, so F(M) = sum over m <= M = kStrip q(q+1)/2 + s(q+1)
+// for M = q kStrip + s.
+long long mask_ctas(int cb) {
+  const long long q = cb / kStrip, s = cb % kStrip;
+  return kStrip * q * (q + 1) / 2 + s * (q + 1);
+}
+
+// The strip of CTA k of an image: its row block r and first column tile
+// c0.  CTAs run through the rows by ascending m, group by group.
+__device__ __forceinline__ void mask_strip(int k, int cb, int& r, int& c0) {
+  int g = (int)((sqrtf(8.0f * (float)k / kStrip + 1.0f) - 1.0f) * 0.5f);
+  while (g > 0 && kStrip * g * (g + 1) / 2 > k) --g;
+  while (kStrip * (g + 1) * (g + 2) / 2 <= k) ++g;
+  const int kk = k - kStrip * g * (g + 1) / 2;
+  r = cb - (g * kStrip + 1 + kk / (g + 1));
+  c0 = r + kk % (g + 1) * kStrip;
+}
+
+// inter and the clamped union of bbox_overlaps, rounded op by op
+__device__ __forceinline__ void overlap(float4 a, float aa, float4 c,
+                                        float ca, float& inter, float& u) {
+  const float iw = __fadd_rn(__fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x)),
+                             1.0f);
+  const float ih = __fadd_rn(__fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y)),
+                             1.0f);
+  inter = __fmul_rn(fmaxf(iw, 0.0f), fmaxf(ih, 0.0f));
+  u = fmaxf(__fsub_rn(__fadd_rn(aa, ca), inter), 1e-14f);
+}
+
+// Every term of an IoU with such a box stays finite: |coordinates| <= 2^60
+// (NaN fails the test).
+__device__ __forceinline__ bool tame(float4 b) {
+  return fabsf(b.x) <= 0x1p60f && fabsf(b.y) <= 0x1p60f &&
+         fabsf(b.z) <= 0x1p60f && fabsf(b.w) <= 0x1p60f;
+}
+
+// One CTA per (image, 64-row block r, strip of kStrip column tiles from
+// r on): thread (t, k) writes word c0 + k of rows 64r + t and 64r + t + 32.
+// Warp k takes tile k, so every shared load is a broadcast, and each
+// serves two IoUs.  With `fast` (2^-60 <= thresh < 1), t_hi, t_lo are
+// thresh * (1 +- 2^-20).
+__global__ void __launch_bounds__(kMaskThreads)
+nms_mask_kernel(const float* __restrict__ boxes, int n, int cb,
+                int ctas_per_image, float thresh, float t_hi, float t_lo,
+                int fast, unsigned long long* __restrict__ mask) {
+  const int b = blockIdx.x / ctas_per_image;
+  int r, c0;
+  mask_strip(blockIdx.x - b * ctas_per_image, cb, r, c0);
+  const float4* img = reinterpret_cast<const float4*>(boxes) + (size_t)b * n;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  __shared__ float4 col[kWord * kStrip];
+  __shared__ float col_area[kWord * kStrip];
+  const int tid = threadIdx.x;
+  bool ok = fast;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = tid + h * kMaskThreads, cj = c0 * kWord + s;
+    const float4 c = cj < n ? img[cj] : zero;
+    col[s] = c;
+    col_area[s] = box_area(c.x, c.y, c.z, c.w);
+    ok = ok && tame(c);
   }
-  __syncthreads();
-  if (threadIdx.x >= row_size) return;
-
-  const int i = row_block * kWord + threadIdx.x;
-  const float* r = img + (size_t)i * 4;
-  const float rx1 = r[0], ry1 = r[1], rx2 = r[2], ry2 = r[3];
-  const float ra = box_area(rx1, ry1, rx2, ry2);
-
-  unsigned long long bits = 0ull;
-  const int start = (row_block == col_block) ? threadIdx.x + 1 : 0;
-  for (int j = start; j < col_size; ++j) {
-    float iw = __fadd_rn(__fsub_rn(fminf(rx2, cx2[j]), fmaxf(rx1, cx1[j])),
-                         1.0f);
-    float ih = __fadd_rn(__fsub_rn(fminf(ry2, cy2[j]), fmaxf(ry1, cy1[j])),
-                         1.0f);
-    iw = fmaxf(iw, 0.0f);
-    ih = fmaxf(ih, 0.0f);
-    const float inter = __fmul_rn(iw, ih);
-    const float uni = __fsub_rn(__fadd_rn(ra, ca[j]), inter);
-    const float iou = __fdiv_rn(inter, fmaxf(uni, 1e-14f));
-    if (iou > thresh) bits |= 1ull << j;
+  const int t = tid % kPair, w = c0 + tid / kPair;
+  const int i = r * kWord + t;
+  float4 a[2];
+  float aa[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    a[q] = i + q * kPair < n ? img[i + q * kPair] : zero;
+    aa[q] = box_area(a[q].x, a[q].y, a[q].z, a[q].w);
+    ok = ok && tame(a[q]);
   }
-  mask[((size_t)b * n + i) * col_blocks + col_block] = bits;
+  // the fast decision for the whole CTA, or for none of it
+  fast = __syncthreads_and(ok);
+  if (i >= n || w >= cb) return;
+  const float4* cs = col + (tid / kPair) * kWord;
+  const float* cas = col_area + (tid / kPair) * kWord;
+
+  // sign bits, column j at bit j: of inter - t_hi*u (1: not surely set)
+  // and of inter - t_lo*u (1: surely clear), each from one FMA, so exact
+  unsigned unset[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
+  unsigned clear[2][2] = {{0u, 0u}, {0u, 0u}};
+  if (fast) {
+#pragma unroll
+    for (int j = kWord - 1; j >= 0; --j) {
+      const float4 c = cs[j];
+      const float ca = cas[j];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float inter, u;
+        overlap(a[q], aa[q], c, ca, inter, u);
+        const unsigned hi = __float_as_uint(__fmaf_rn(-t_hi, u, inter));
+        const unsigned lo = __float_as_uint(__fmaf_rn(-t_lo, u, inter));
+        // shift the sign bit in from the right
+        unset[q][j / 32] = __funnelshift_l(hi, unset[q][j / 32], 1);
+        clear[q][j / 32] = __funnelshift_l(lo, clear[q][j / 32], 1);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int tq = t + q * kPair;
+    if (i + q * kPair >= n) break;
+    unsigned long long keep = ~0ull;   // the columns this word may hold
+    if (w == r) keep = tq == kWord - 1 ? 0ull : ~0ull << (tq + 1);
+    if (n - w * kWord < kWord) keep &= (1ull << (n - w * kWord)) - 1ull;
+    const unsigned long long un =
+        unset[q][0] | (unsigned long long)unset[q][1] << 32;
+    unsigned long long bits = ~un & keep;
+    unsigned long long band =
+        un & ~(clear[q][0] | (unsigned long long)clear[q][1] << 32) & keep;
+    while (band) {                     // inside the band: the exact test
+      const int j = __ffsll((long long)band) - 1;
+      band &= band - 1ull;
+      float inter, u;
+      overlap(a[q], aa[q], cs[j], cas[j], inter, u);
+      if (__fdiv_rn(inter, u) > thresh) bits |= 1ull << j;
+    }
+    mask[((size_t)b * n + i + q * kPair) * cb + w] = bits;
+  }
 }
 
 // ---- the sweep ----------------------------------------------------------
@@ -329,9 +436,17 @@ extern "C" {
 int mxr_nms_mask(const float* boxes, int batch, int n, float thresh,
                  unsigned long long* mask, void* stream) {
   const int col_blocks = (n + kWord - 1) / kWord;
-  const dim3 grid(col_blocks, col_blocks, batch);
-  nms_mask_kernel<<<grid, kWord, 0, (cudaStream_t)stream>>>(
-      boxes, n, col_blocks, thresh, mask);
+  const long long per_image = mask_ctas(col_blocks);
+  if (per_image * batch > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the fast decision only for 2^-60 <= thresh < 1 (NaN fails), where
+  // t_hi and t_lo are normal floats within 2^-24 of their real values
+  const int fast = thresh >= 0x1p-60f && thresh < 1.0f;
+  const float t_hi = thresh * (1.0f + 0x1p-20f);
+  const float t_lo = thresh * (1.0f - 0x1p-20f);
+  nms_mask_kernel<<<(unsigned)(per_image * batch), kMaskThreads, 0,
+                    (cudaStream_t)stream>>>(boxes, n, col_blocks,
+                                            (int)per_image, thresh, t_hi,
+                                            t_lo, fast, mask);
   return (int)cudaGetLastError();
 }
 

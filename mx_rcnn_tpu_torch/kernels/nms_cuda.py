@@ -4,7 +4,11 @@ The CUDA counterpart of ``mx_rcnn_tpu/kernels/nms_pallas.py``.  Two
 kernels, each behind its own wrapper with its own launch count:
 
 * :func:`nms_mask` — phase A (``_suppress_kernel``): the upper-triangle
-  suppression bitmask of score-sorted boxes, 64-bit words;
+  suppression bitmask of score-sorted boxes, 64-bit words.  Only the
+  triangle is launched, one 128-thread block per strip of four 64×64
+  tiles, two rows a thread; the IoU test is decided by the exact signs of
+  two FMAs and takes the true division only within 2^-20 of the
+  threshold;
 * :func:`nms_sweep` — phase B (``_sweep_kernel`` + ``_nms_post``): the
   greedy sweep, writing ``(keep_idx, keep_mask)`` directly.  One block of
   256 threads per image walks the 64-row blocks in order, as

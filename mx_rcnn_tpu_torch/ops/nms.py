@@ -78,12 +78,13 @@ def nms_padded_batch(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
 
 def nms(dets: np.ndarray, thresh: float) -> list:
     """Host numpy greedy NMS over (N, 5) [x1,y1,x2,y2,score] rows → kept
-    row indices, score-descending (the reference's py_nms contract)."""
+    row indices, score-descending, equal scores in row order (the stable
+    sort of the reference's native NMS)."""
     if dets.size == 0:
         return []
     x1, y1, x2, y2, scores = dets[:, 0], dets[:, 1], dets[:, 2], dets[:, 3], dets[:, 4]
     areas = (x2 - x1 + 1) * (y2 - y1 + 1)
-    order = scores.argsort()[::-1]
+    order = np.argsort(-scores, kind="stable")
     keep = []
     while order.size > 0:
         i = order[0]

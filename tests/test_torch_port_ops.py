@@ -31,7 +31,7 @@ from mx_rcnn_tpu_torch.kernels import nms_cuda
 from mx_rcnn_tpu_torch.ops import anchors as tanchors
 from mx_rcnn_tpu_torch.ops import boxes as tboxes
 from mx_rcnn_tpu_torch.ops import postprocess as tpost
-from mx_rcnn_tpu_torch.ops.nms import nms_padded
+from mx_rcnn_tpu_torch.ops.nms import nms as tnms, nms_padded
 from mx_rcnn_tpu_torch.ops.proposal import propose as tpropose
 from mx_rcnn_tpu_torch.ops.roi_align import roi_align as troi_align
 
@@ -336,3 +336,59 @@ def test_postprocess_matches_jax():
         np.arange(4, dtype=np.float32)[:, None] * 50
     d = tpost.per_class_nms(tied, tb, np.ones(4, bool), 3, 0.05, 0.3, 2)
     assert len(d[1]) == 4
+
+
+def stable_greedy_nms(dets, thresh):
+    """Greedy NMS in descending score order, equal scores in row order (a
+    stable sort), with the legacy +1 areas in float32."""
+    order = sorted(range(len(dets)), key=lambda i: -dets[i, 4])
+    area = (dets[:, 2] - dets[:, 0] + 1) * (dets[:, 3] - dets[:, 1] + 1)
+    keep, removed = [], np.zeros(len(dets), bool)
+    for a, i in enumerate(order):
+        if removed[i]:
+            continue
+        keep.append(i)
+        for j in order[a + 1:]:
+            iw = min(dets[i, 2], dets[j, 2]) - max(dets[i, 0], dets[j, 0]) + 1
+            ih = min(dets[i, 3], dets[j, 3]) - max(dets[i, 1], dets[j, 1]) + 1
+            inter = np.float32(max(iw, 0) * max(ih, 0))
+            if inter / (area[i] + area[j] - inter) > np.float32(thresh):
+                removed[j] = True
+    return keep
+
+
+@pytest.mark.parametrize("oracle", ["native", "stable-greedy"])
+def test_postprocess_tied_scores_match_reference(oracle):
+    """Exact score ties (common once bf16 logits are rounded): among equal
+    scores the lower row comes first, as the reference's native NMS sorts
+    (``std::stable_sort``).  Integer boxes, so every IoU is the correctly
+    rounded quotient of two exact integers in all implementations."""
+    from mx_rcnn_tpu import native
+    if oracle == "native":
+        if not native.available():
+            pytest.skip("the JAX package's native library does not load; its "
+                        "numpy fallback sorts ties the other way")
+        ref_nms = None              # jpost.per_class_nms's default
+    else:
+        ref_nms = stable_greedy_nms
+    # two boxes that overlap at an equal score, one above them
+    dets = np.float32([[0, 0, 10, 10, .5], [1, 1, 11, 11, .5],
+                       [50, 50, 60, 60, .9]])
+    want = native.nms(dets, 0.3) if oracle == "native" \
+        else stable_greedy_nms(dets, 0.3)
+    assert want == [2, 0]
+    assert tnms(dets, 0.3) == want
+    rng = np.random.RandomState(11)
+    r, k = 200, 4
+    xy = rng.randint(0, 120, (r, 2))
+    wh = rng.randint(8, 60, (r, 2))
+    boxes = np.tile(np.concatenate([xy, xy + wh], 1), (1, k)).astype(
+        np.float32)
+    scores = rng.choice(np.float32([0.25, 0.5, 0.75]), (r, k))
+    valid = rng.rand(r) > 0.1
+    for cap in (100, 30):
+        got = tpost.per_class_nms(scores, boxes, valid, k, 0.05, 0.3, cap)
+        want = jpost.per_class_nms(scores, boxes, valid, k, 0.05, 0.3, cap,
+                                   nms_fn=ref_nms)
+        for c in range(1, k):
+            np.testing.assert_array_equal(got[c], want[c])
