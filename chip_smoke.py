@@ -18,9 +18,13 @@ Phases, each printing its own lines:
    ``nms_padded``; the mask's threshold-band cases (IoUs at and one float32
    step beside the threshold, clamped unions, coordinates at 1e5 and 1e-3,
    thresholds 0 and 1; :func:`mask_band_cases`), ``nms_mask``'s words
-   bitwise equal to ``suppression_mask_plain``'s; and the assign case matrix of
-   ``tests/test_assign_fused.py`` plus the main path's shape (all four
-   outputs of the two assign kernels bitwise equal to the dense path).
+   bitwise equal to ``suppression_mask_plain``'s; and the assign case
+   matrix (:func:`assign_cases`: padded gt with one valid at the end, holes
+   or none valid, exact ties between gt and across tiles, every anchor
+   outside, N below, at and off a multiple of one tile, B = 3; plus cases
+   at the main path's anchor count): the chained pair's four outputs
+   bitwise equal to the dense path, each kernel's bitwise equal to its own
+   plain version.
 3. The inference slice at full width: ResNet-101 Faster R-CNN, VOC (21
    classes), 600×1000 bucket, TEST config, bfloat16, seeded random weights.
    Four raw RGB uint8 images in batches of two go through stage → device
@@ -47,8 +51,9 @@ Phases, each printing its own lines:
    inference shape (6000 → 300) and at the training shape (12000 → 2000)
    on the model's RPN boxes and at the training shape on identical boxes
    (every IoU 1), the assign pair on the training batch and at
-   G = 100 valid gt for N = 21 888 and FPN's N = 155 520; and the median
-   train step wall time with the fused and the dense assign.
+   G = 100 valid gt for N = 21 888 and FPN's N = 155 520 (each assign row
+   also carries the pair's summed time and the pair's bound); and the
+   median train step wall time with the fused and the dense assign.
 6. One ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -464,61 +469,110 @@ def assign_case(rng, anchors, im_hw, n_gt, g, size=(20.0, 60.0)):
     return gt, valid, inside
 
 
+def assign_cases(all_anchors, generate_anchors) -> dict:
+    """The assign case matrix at CPU-test sizes: name → (anchors (N, 4), gt
+    (B, G, 4), gt_valid (B, G), inside (B, N)).  Padded gt with one valid
+    at the end, holes or none valid; exact ties between gt and across
+    tiles; every anchor outside; N below one 256-anchor tile, N a
+    multiple of it and not; B = 3."""
+    base = generate_anchors(scales=(1, 2, 4))
+    small = all_anchors(10, 12, 16, base)          # N = 1080 = 4 · 256 + 56
+    hw = (160, 192)
+    cases = {}
+
+    def add(name, anchors, per):
+        cases[name] = (anchors,) + tuple(np.stack([p[k] for p in per])
+                                         for k in range(3))
+
+    for seed, n_gt in enumerate((0, 1, 5, 16)):
+        add(f"{n_gt} of 16 gt", small,
+            [assign_case(np.random.RandomState(seed), small, hw, n_gt, 16)])
+    gt, valid, inside = assign_case(np.random.RandomState(7), small, hw, 3,
+                                    16)
+    gt[1] = gt[0]                                    # exact ties
+    add("duplicate gt", small, [(gt, valid, inside)])
+    add("all outside", small, [(gt, valid, np.zeros_like(inside))])
+    gt, valid, inside = assign_case(np.random.RandomState(8), small, hw, 100,
+                                    100)
+    add("last of 100 valid", small, [(gt, np.arange(100) == 99, inside)])
+    add("none of 100 valid", small, [(gt, np.zeros(100, bool), inside)])
+    holes = np.arange(100) < 40
+    holes[[0, 5, 6, 7, 8, 33]] = False
+    add("holes in 100", small, [(gt, holes, inside)])
+    # the whole image as a gt: every inside anchor of one shape ties for
+    # its maximum, across tiles; and a copy of one anchor (IoU 1)
+    gt = np.zeros((16, 4), np.float32)
+    gt[0] = [0, 0, hw[1] - 1, hw[0] - 1]
+    gt[1] = small[500]
+    valid = np.arange(16) < 2
+    add("gt max tied across tiles", small, [(gt, valid, inside)])
+    gt = np.zeros((16, 4), np.float32)
+    gt[0] = [400, 400, 430, 420]                     # overlaps no anchor
+    gt[1] = small[777]
+    add("gt overlapping nothing", small, [(gt, valid, inside)])
+    tiny = all_anchors(3, 5, 16, base)               # N = 135
+    add("N=135 below one tile", tiny,
+        [assign_case(np.random.RandomState(9), tiny, (48, 80), 4, 16,
+                     (8.0, 24.0))])
+    whole = all_anchors(16, 16, 16, base)            # N = 2304 = 9 · 256
+    add("N=2304 nine tiles", whole,
+        [assign_case(np.random.RandomState(10), whole, (256, 256), 8, 16)])
+    per = [assign_case(np.random.RandomState(20 + b), small, hw, n, 16)
+           for b, n in enumerate((3, 9, 6))]
+    per[1][1][2] = False                             # a hole in the run
+    add("B=3 with holes", small, per)
+    return cases
+
+
+def check_assign(assign_cuda, name, args) -> None:
+    """One case through the kernels on the card: the chained pair
+    (``assign_reduce``) bitwise equal to the dense path, and each kernel
+    bitwise equal to its own plain version on the same inputs."""
+    def same(got, want, what):
+        for x, y in zip(got, want, strict=True):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"{what} disagrees with its plain version [{name}]")
+
+    same(assign_cuda.assign_reduce(*args),
+         assign_cuda.assign_reduce_plain(*args), "assign_reduce")
+    phase1 = assign_cuda.assign_gtmax(*args)
+    same(phase1, assign_cuda.gtmax_partials_plain(*args), "assign_gtmax")
+    same([assign_cuda.assign_rows(*args, *phase1[2:])],
+         [assign_cuda.rows_plain(*args, *phase1[2:])], "assign_rows")
+
+
 def check_assign_matrix(assign_cuda, all_anchors, generate_anchors, dev,
                         main_anchors, main_hw) -> int:
-    """The assign kernels against the dense plain version on the same CUDA
-    inputs: all four outputs bitwise equal, and each kernel against its
-    own plain version.  Returns the number of cases."""
-    def one(name, anchors, gt, valid, inside):
-        a = torch.from_numpy(anchors).to(dev)
-        args = (a, torch.from_numpy(gt).to(dev), torch.from_numpy(valid).to(dev),
-                torch.from_numpy(inside).to(dev))
-        got = assign_cuda.assign_reduce(*args)
-        want = assign_cuda.assign_reduce_plain(*args)
-        for what, x, y in zip(("max_overlap", "argmax", "gt_max", "tie"), got,
-                              want, strict=True):
-            if x.dtype != y.dtype or not torch.equal(x, y):
-                fail(f"assign mismatch [{name}] in {what}")
-        parts = assign_cuda.assign_gtmax(*args)
-        if not torch.equal(parts, assign_cuda.gtmax_partials_plain(*args)):
-            fail(f"assign_gtmax disagrees with its plain version [{name}]")
-        rows = assign_cuda.assign_rows(*args, parts)
-        for x, y in zip(rows, assign_cuda.rows_plain(*args, parts), strict=True):
-            if not torch.equal(x, y):
-                fail(f"assign_rows disagrees with its plain version [{name}]")
+    """:func:`assign_cases` and cases at the main path's anchor count
+    through :func:`check_assign`.  Returns the number of cases."""
+    def on_card(*arrays):
+        return tuple(torch.from_numpy(x).to(dev) for x in arrays)
 
-    small = all_anchors(10, 12, 16, generate_anchors(scales=(1, 2, 4)))
-    cases = 0
-    for seed, n_gt in enumerate((0, 1, 5, 16)):
-        gt, valid, inside = assign_case(np.random.RandomState(seed), small,
-                                        (160, 192), n_gt, 16)
-        one(f"{n_gt} gt", small, gt[None], valid[None], inside[None])
-        cases += 1
-    gt, valid, inside = assign_case(np.random.RandomState(7), small,
-                                    (160, 192), 3, 16)
-    gt[1] = gt[0]                                    # exact ties
-    one("duplicate gt", small, gt[None], valid[None], inside[None])
-    one("all outside", small, gt[None], valid[None],
-        np.zeros_like(inside)[None])
-    cases += 2
+    cases = assign_cases(all_anchors, generate_anchors)
     big = (40.0, 360.0)
     for g in (100, 128):
         gt, valid, inside = assign_case(np.random.RandomState(g), main_anchors,
                                         main_hw, g, g, big)
-        one(f"G={g}", main_anchors, gt[None], valid[None], inside[None])
-        cases += 1
+        cases[f"G={g} main"] = (main_anchors, gt[None], valid[None],
+                                inside[None])
+        if g == 100:
+            cases["last of 100 valid, main"] = (
+                main_anchors, gt[None], (np.arange(g) == g - 1)[None],
+                inside[None])
     per = [assign_case(np.random.RandomState(30 + b), main_anchors, main_hw,
                        n, 100, big) for b, n in enumerate((3, 40, 17))]
     valid = np.stack([p[1] for p in per])
     valid[1, 5:9] = False                            # holes in the valid run
     valid[2, 0] = False
-    one("B=3 holes", main_anchors, np.stack([p[0] for p in per]), valid,
-        np.stack([p[2] for p in per]))
+    cases["B=3 holes main"] = (main_anchors, np.stack([p[0] for p in per]),
+                               valid, np.stack([p[2] for p in per]))
     per = [assign_case(np.random.RandomState(40 + b), main_anchors, main_hw,
                        6, 100, big) for b in range(BATCH)]
-    one("main path shape", main_anchors, *(np.stack([p[i] for p in per])
-                                           for i in range(3)))
-    return cases + 2
+    cases["main path shape"] = (main_anchors,) + tuple(
+        np.stack([p[i] for p in per]) for i in range(3))
+    for name, arrays in cases.items():
+        check_assign(assign_cuda, name, on_card(*arrays))
+    return len(cases)
 
 
 # ---- times ------------------------------------------------------------------
@@ -605,50 +659,73 @@ def fpn_anchors(all_anchors, generate_anchors, hw=(608, 1024)):
     return out
 
 
-def assign_bounds(anchors, gt_valid, inside):
-    """{kernel: (bytes, ops)} of the assign pair on these inputs, counting
-    what the function needs: anchors, flags and gt read once by each
-    kernel, the four outputs written once by assign_rows with argmax as
-    the int32 of the TPU kernel's contract (the design's per-tile partials
-    are not the function's traffic); an IoU for every (inside anchor,
-    valid gt) pair in assign_gtmax and every (anchor, valid gt) pair in
-    assign_rows."""
+def assign_bounds(anchors, gt_valid, inside, gt_max, partials, tile):
+    """{kernel: (bytes, ops)} of the assign pair on these inputs, and of
+    the pair as a whole under "pair", counting what the function needs:
+    anchors, flags and gt read once, the four outputs written once with
+    argmax as the int32 of the TPU kernel's contract (the design's
+    per-tile partials are not the function's traffic), and one IoU for
+    every (anchor, valid gt) pair.  assign_gtmax: the inputs, three
+    outputs and every IoU.  assign_rows: the inputs and gt_max read, the
+    tie flag written, and the IoUs of the inside anchors of the tiles
+    whose partial equals a positive gt_max, for that gt (no other tile
+    can tie)."""
     b, g = gt_valid.shape
     n = anchors.shape[0]
     n_valid = gt_valid.sum(1).to(torch.int64)
     inputs = n * 16 + b * n + b * g * 17
-    gtmax_ops = int((inside.sum(1) * n_valid).sum()) * IOU_OPS
-    rows_ops = int((n * n_valid).sum()) * IOU_OPS
-    return {"assign_gtmax": (inputs, gtmax_ops),
-            "assign_rows": (inputs + b * n * 9 + b * g * 4, rows_ops)}
+    pair_ops = int((n * n_valid).sum()) * IOU_OPS
+    tiles = partials.shape[1]
+    ins = torch.nn.functional.pad(inside, (0, tiles * tile - n)).view(
+        b, tiles, tile)
+    cand = ((partials == gt_max[:, None, :]) & gt_valid[:, None, :]
+            & (gt_max[:, None, :] > 0))                         # (B, T, G)
+    rows_ops = int((ins.sum(2, dtype=torch.int64)[:, :, None]
+                    * cand).sum()) * IOU_OPS
+    return {"assign_gtmax": (inputs + b * n * 8 + b * g * 4, pair_ops),
+            "assign_rows": (inputs + b * g * 4 + b * n, rows_ops),
+            "pair": (inputs + b * n * 9 + b * g * 4, pair_ops)}
 
 
 def time_assign(assign_cuda, anchors, gt, valid, inside):
     """Both assign kernels and their plain versions on the same inputs:
-    results compared bitwise, times and bounds measured."""
+    results compared bitwise (each kernel with its own plain version, the
+    chained pair with the dense path), times and bounds measured; each
+    row carries the pair's summed time and the pair's bound."""
     args = (anchors, gt, valid, inside)
-    parts = assign_cuda.assign_gtmax(*args)
-    gtmax_err = float((parts - assign_cuda.gtmax_partials_plain(*args))
-                      .abs().max())
-    got = assign_cuda.assign_rows(*args, parts)
-    want = assign_cuda.rows_plain(*args, parts)
-    rows_err = max(float((x.double() - y.double()).abs().max())
-                   for x, y in zip(got, want, strict=True))
-    bounds = assign_bounds(anchors, valid, inside)
+    phase1 = assign_cuda.assign_gtmax(*args)
+    gm, parts = phase1[2:]
+    gtmax_err = max(float((x.double() - y.double()).abs().max())
+                    for x, y in zip(phase1, assign_cuda.gtmax_partials_plain(
+                        *args), strict=True))
+    tie = assign_cuda.assign_rows(*args, gm, parts)
+    rows_err = float((tie != assign_cuda.rows_plain(*args, gm, parts))
+                     .sum())
+    if any(not torch.equal(x, y) for x, y in zip(
+            phase1[:3] + (tie,), assign_cuda.assign_reduce_plain(*args),
+            strict=True)):
+        fail(f"the assign pair disagrees with the dense path at "
+             f"N={anchors.shape[0]}, G={gt.shape[1]}")
+    bounds = assign_bounds(anchors, valid, inside, gm, parts,
+                           assign_cuda.TILE)
     out = []
     for name, err, fn, plain in (
             ("assign_gtmax", gtmax_err,
              lambda: assign_cuda.assign_gtmax(*args),
              lambda: assign_cuda.gtmax_partials_plain(*args)),
             ("assign_rows", rows_err,
-             lambda: assign_cuda.assign_rows(*args, parts),
-             lambda: assign_cuda.rows_plain(*args, parts))):
+             lambda: assign_cuda.assign_rows(*args, gm, parts),
+             lambda: assign_cuda.rows_plain(*args, gm, parts))):
         t, by = bound_of(*bounds[name])
         out.append({"name": name, "max_abs_err": err,
                     "ms": graph_median_ms(fn),
                     "eager_ms": cuda_median_ms(fn, KERNEL_RUN),
                     "plain_ms": cuda_median_ms(plain), "bound_ms": t,
                     "bound_by": by, "library_ms": None})
+    pair_t, pair_by = bound_of(*bounds["pair"])
+    for row in out:
+        row.update(pair_ms=out[0]["ms"] + out[1]["ms"], pair_bound_ms=pair_t,
+                   pair_bound_by=pair_by)
     return out
 
 

@@ -16,33 +16,60 @@
 //   tie[i]        = any g with inside[i] & gt_valid[g] & gt_max[g] > 0 &
 //                   iou[i, g] == gt_max[g]
 //
-// Two kernels, one launch each per batch:
-//   * assign_gtmax: grid (ceil(N / 2048), B).  Each block holds its image's
-//     gt in shared memory, each thread 8 anchors in registers; per gt the
-//     block reduces its anchors' IoU (warp shuffles, then across warps) and
-//     writes one per-tile partial maximum: partials (B, tiles, G).
-//   * assign_rows: grid (ceil(N / 1024), B).  Each block first reduces its
-//     image's partials to gt_max (block x == 0 also writes it out), then
-//     each thread takes 4 anchors and writes max_overlap, argmax and the
-//     tie predicate from its own IoU values.
-// No atomics: every reduction is a max, so its result does not depend on
-// the order, and the partials route needs no float-as-int encoding.
+// Two kernels, one launch each per batch, both on tiles of kTile = 256
+// anchors, one anchor a thread, grid (ceil(N / 256), B):
+//   * assign_gtmax computes every IoU once.  A block compacts its image's
+//     VALID gt into shared memory in increasing index order (with each
+//     one's original index) and walks only those, 32 at a time; each thread
+//     keeps its anchor's running max and argmax (strict >, so ties keep
+//     the lowest index) and writes max_overlap and argmax.  The per-gt
+//     maxima over the tile's inside anchors come from one transposed
+//     halving exchange per warp and 32 gt (31 shuffles, lane l ending
+//     with gt l's maximum), then a max across the 8 warps: one per-tile
+//     partial per gt, partials (B, tiles, G), -1 in invalid columns.  The
+//     last block of an image to finish (a __threadfence and an integer
+//     arrival counter per image, which that block resets to 0, so a CUDA
+//     graph replays correctly) reduces the image's partials to gt_max.
+//   * assign_rows writes the tie flag.  An anchor of tile t can tie gt g
+//     only if the tile's partial equals gt_max[g] > 0 (the partial is the
+//     max over the tile's inside anchors, and no partial exceeds gt_max).
+//     A block keeps those candidate gt of its tile (usually none) and
+//     recomputes the IoU for them alone; every other anchor gets false.
+// No float atomics: every reduction is a max, so its result does not
+// depend on the order; the only atomic is the integer arrival count.
 //
 // Exactness: the IoU uses the expression tree of ops/boxes.py:bbox_overlaps
 // with explicitly rounded operations (__fadd_rn etc.; the build passes
 // -fmad=false) and a true division, so every IoU equals the plain version's
-// elementwise PyTorch ops bit for bit, and so do the four outputs.
+// elementwise PyTorch ops bit for bit, and so do the four outputs.  One
+// division is skipped, exactly.  Before its clamp iw = fl(d + 1) is never
+// -0 (a rounded sum is -0 only if both terms are), and fmaxf(iw, 0) returns
+// +0 for a negative iw or a NaN, so iw and ih lie in [+0, +inf] and inter =
+// iw * ih is +0, positive, or NaN (+0 * inf).  The divisor fmaxf(uni,
+// 1e-14f) lies in [1e-14, +inf] (fmaxf returns 1e-14 for a NaN union).  So
+// when inter == 0 it is +0, the rounded quotient +0 / divisor is +0 for
+// every divisor, and the kernel returns +0 without dividing; a NaN inter
+// still takes the division.  The walk over valid gt only keeps argmax's
+// lowest-index rule because every valid IoU is >= +0 > -1 (the value of
+// every invalid column), and the compacted gt are walked in increasing
+// index order; with no valid gt, max_overlap = -1 and argmax = 0, as the
+// dense path gives.
 //
-// What bounds it on this card: each kernel computes an IoU (16 f32
-// operations) for every pair of anchor and VALID gt (assign_gtmax: inside
-// anchors only), against ~16·N + 10·B·N bytes of anchors, flags and
-// outputs (argmax counted as the int32 the function needs; the kernel
-// writes int64 for torch's gather).  With all G = 100 gt valid (B=2, N=21 888) the pair does ~140
-// MFLOP, ~2 us at 67 TFLOP/s, and operations bound it; with the few gt of
-// a typical image bytes do, at well under a microsecond.  Either way the
-// work is of the order of a launch; this simple design is latency-bound
-// instead: a block walks its image's gt one after another.
-
+// What bounds it on this card: the function needs one IoU (16 f32
+// operations) for every pair of anchor and VALID gt, against ~17·N +
+// 9·B·N bytes of anchors, flags and outputs (argmax counted as the int32
+// the function needs; the kernel writes int64 for torch's gather).  With
+// all G = 100 gt valid (B = 2, N = 21 888) that is 70 MFLOP, ~1 us at 67
+// TFLOP/s, and operations bound it; with the few gt of a typical image
+// bytes do, at well under a microsecond.  Either way the work is of the
+// order of a launch, so the design aims at latency: hundreds of blocks
+// even at the training batch, every independent load issued before the
+// first barrier, no serial walk over padded gt, no dependent shuffle chain
+// per gt, and the partials reduced once.  What is left is per warp: each
+// IoU of a chunk sits in its own branch region (the zero test, and the
+// correctly rounded division's check and slow-path call), so the compiler
+// does not interleave the 32 IoUs of a chunk and a warp pays each one's
+// dependent latency in turn; at 63 registers an SM holds 4 blocks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,166 +78,250 @@ namespace {
 constexpr int kMaxGt = 128;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGtmaxPerThread = 8;
-constexpr int kGtmaxTile = kThreads * kGtmaxPerThread;  // 2048 anchors
-constexpr int kRowsPerThread = 4;
-constexpr int kRowsTile = kThreads * kRowsPerThread;    // 1024 anchors
+constexpr int kTile = kThreads;          // anchors per block, one a thread
+constexpr int kChunk = 32;               // gt per transposed exchange
 constexpr unsigned kFullWarp = 0xffffffffu;
+static_assert(kThreads >= kMaxGt, "one thread per gt slot at load");
 
-__device__ __forceinline__ float box_area(float x1, float y1, float x2,
-                                          float y2) {
-  return __fmul_rn(__fadd_rn(__fsub_rn(x2, x1), 1.0f),
-                   __fadd_rn(__fsub_rn(y2, y1), 1.0f));
+__device__ __forceinline__ float box_area(float4 b) {
+  return __fmul_rn(__fadd_rn(__fsub_rn(b.z, b.x), 1.0f),
+                   __fadd_rn(__fsub_rn(b.w, b.y), 1.0f));
 }
 
 // bbox_overlaps(anchor, gt): anchor area `aa` first in the union, as the
-// plain version's `area_b + area_q - inter`.
-__device__ __forceinline__ float iou(float ax1, float ay1, float ax2,
-                                     float ay2, float aa, float gx1,
-                                     float gy1, float gx2, float gy2,
-                                     float ga) {
-  float iw = __fadd_rn(__fsub_rn(fminf(ax2, gx2), fmaxf(ax1, gx1)), 1.0f);
-  float ih = __fadd_rn(__fsub_rn(fminf(ay2, gy2), fmaxf(ay1, gy1)), 1.0f);
+// plain version's `area_b + area_q - inter`.  The division is skipped only
+// where inter == +0 (see the header).
+__device__ __forceinline__ float iou(float4 a, float aa, float4 g, float ga) {
+  float iw = __fadd_rn(__fsub_rn(fminf(a.z, g.z), fmaxf(a.x, g.x)), 1.0f);
+  float ih = __fadd_rn(__fsub_rn(fminf(a.w, g.w), fmaxf(a.y, g.y)), 1.0f);
   iw = fmaxf(iw, 0.0f);
   ih = fmaxf(ih, 0.0f);
   const float inter = __fmul_rn(iw, ih);
+  if (inter == 0.0f) return 0.0f;
   const float uni = __fsub_rn(__fadd_rn(aa, ga), inter);
   return __fdiv_rn(inter, fmaxf(uni, 1e-14f));
 }
 
-struct GtSmem {
-  float x1[kMaxGt], y1[kMaxGt], x2[kMaxGt], y2[kMaxGt], area[kMaxGt];
-  unsigned char valid[kMaxGt];
-};
-
-__device__ __forceinline__ void load_gt(GtSmem& s, const float* gt,
-                                        const unsigned char* gt_valid,
-                                        int g_count) {
-  for (int g = threadIdx.x; g < g_count; g += blockDim.x) {
-    const float* p = gt + (size_t)g * 4;
-    s.x1[g] = p[0];
-    s.y1[g] = p[1];
-    s.x2[g] = p[2];
-    s.y2[g] = p[3];
-    s.area[g] = box_area(p[0], p[1], p[2], p[3]);
-    s.valid[g] = gt_valid[g];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-assign_gtmax_kernel(const float* __restrict__ anchors,
-                    const float* __restrict__ gt,
-                    const unsigned char* __restrict__ gt_valid,
-                    const unsigned char* __restrict__ inside, int n,
-                    int g_count, int tiles, float* __restrict__ partials) {
-  __shared__ GtSmem s;
-  __shared__ float warp_max[kWarps][kMaxGt];
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
+// Thread g (< kMaxGt) offers gt g when `keep`; returns its slot among the
+// kept gt, in increasing g order, and sets *count to their number.  Every
+// thread of the block must call it; it ends with a barrier.
+__device__ __forceinline__ int compact(bool keep, int* warp_count,
+                                       int* count) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  load_gt(s, gt + (size_t)b * g_count * 4, gt_valid + (size_t)b * g_count,
-          g_count);
-
-  float ax1[kGtmaxPerThread], ay1[kGtmaxPerThread], ax2[kGtmaxPerThread],
-      ay2[kGtmaxPerThread], aa[kGtmaxPerThread];
-  bool in[kGtmaxPerThread];
-  const unsigned char* ins = inside + (size_t)b * n;
-#pragma unroll
-  for (int k = 0; k < kGtmaxPerThread; ++k) {
-    const int i = tile * kGtmaxTile + k * kThreads + threadIdx.x;
-    in[k] = i < n && ins[i];
-    if (in[k]) {
-      const float* p = anchors + (size_t)i * 4;
-      ax1[k] = p[0];
-      ay1[k] = p[1];
-      ax2[k] = p[2];
-      ay2[k] = p[3];
-      aa[k] = box_area(p[0], p[1], p[2], p[3]);
-    } else {
-      ax1[k] = ay1[k] = ax2[k] = ay2[k] = aa[k] = 0.0f;
-    }
-  }
+  const unsigned m = __ballot_sync(kFullWarp, keep);
+  if (lane == 0) warp_count[warp] = __popc(m);
   __syncthreads();
-
-  for (int g = 0; g < g_count; ++g) {
-    float m = -1.0f;
-    if (s.valid[g]) {
+  int slot = __popc(m & ((1u << lane) - 1u)), total = 0;
 #pragma unroll
-      for (int k = 0; k < kGtmaxPerThread; ++k)
-        if (in[k])
-          m = fmaxf(m, iou(ax1[k], ay1[k], ax2[k], ay2[k], aa[k], s.x1[g],
-                           s.y1[g], s.x2[g], s.y2[g], s.area[g]));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(kFullWarp, m, off));
-    if (lane == 0) warp_max[warp][g] = m;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) slot += warp_count[w];
+    total += warp_count[w];
   }
-  __syncthreads();
-  float* out = partials + ((size_t)b * tiles + tile) * g_count;
-  for (int g = threadIdx.x; g < g_count; g += kThreads) {
-    float m = warp_max[0][g];
+  *count = total;
+  return slot;
+}
+
+// One step of the transposed halving exchange: a lane keeps the half of
+// its live slots that its W bit selects and takes the partner's copy of
+// that half.  W is a template argument so that every index into v is a
+// constant and v stays in registers.
+template <int W>
+__device__ __forceinline__ void halve(float (&v)[kChunk], int lane) {
+  const bool upper = lane & W;
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_max[w][g]);
-    out[g] = m;
+  for (int j = 0; j < W; ++j) {
+    const float send = upper ? v[j] : v[j + W];
+    const float keep = upper ? v[j + W] : v[j];
+    v[j] = fmaxf(keep, __shfl_xor_sync(kFullWarp, send, W));
   }
 }
 
+// v[j] holds this lane's value for gt j of a chunk of 32; afterwards v[0]
+// holds the maximum over the warp's 32 lanes for gt `lane`: 16 + 8 + 4 +
+// 2 + 1 shuffles.
+__device__ __forceinline__ void warp_transpose_max(float (&v)[kChunk],
+                                                   int lane) {
+  halve<16>(v, lane);
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+}
+
 __global__ void __launch_bounds__(kThreads)
-assign_rows_kernel(const float* __restrict__ anchors,
-                   const float* __restrict__ gt,
+assign_gtmax_kernel(const float4* __restrict__ anchors,
+                    const float4* __restrict__ gt,
+                    const unsigned char* __restrict__ gt_valid,
+                    const unsigned char* __restrict__ inside, int n,
+                    int g_count, int tiles, float* __restrict__ max_overlap,
+                    long long* __restrict__ argmax,
+                    float* __restrict__ gt_max, float* __restrict__ partials,
+                    unsigned int* __restrict__ arrivals) {
+  __shared__ float4 s_box[kMaxGt];
+  __shared__ float s_area[kMaxGt];
+  __shared__ int s_index[kMaxGt];
+  __shared__ int s_warp_count[kWarps];
+  __shared__ float s_warp_max[kWarps][kMaxGt];
+  __shared__ float s_red[kThreads];
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tile = blockIdx.x;
+  const int b = blockIdx.y;
+  float* part = partials + ((size_t)b * tiles + tile) * g_count;
+
+  // every load up front, so that they overlap: thread g's gt and this
+  // thread's anchor
+  const int g = tid;
+  const bool have_g = g < g_count;
+  bool valid = false;
+  float4 box = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (have_g) {
+    valid = gt_valid[(size_t)b * g_count + g] != 0;
+    box = gt[(size_t)b * g_count + g];
+  }
+  const int i = tile * kTile + tid;
+  const bool have_i = i < n;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  bool in = false;
+  if (have_i) {
+    a = anchors[i];
+    in = inside[(size_t)b * n + i] != 0;
+  }
+
+  // the image's valid gt, compacted in increasing index order
+  int count;
+  const int slot = compact(valid, s_warp_count, &count);
+  if (valid) {
+    s_box[slot] = box;
+    s_area[slot] = box_area(box);
+    s_index[slot] = g;
+  } else if (have_g) {
+    part[g] = -1.0f;
+  }
+  const float aa = box_area(a);
+  float best = -1.0f;
+  int best_slot = 0;
+  __syncthreads();
+
+  for (int c0 = 0; c0 < count; c0 += kChunk) {
+    float v[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      v[j] = -1.0f;
+      if (c0 + j < count) {
+        const float q = iou(a, aa, s_box[c0 + j], s_area[c0 + j]);
+        if (q > best) {  // strict: ties keep the lowest gt index
+          best = q;
+          best_slot = c0 + j;
+        }
+        if (in) v[j] = q;
+      }
+    }
+    warp_transpose_max(v, lane);
+    if (c0 + lane < count) s_warp_max[warp][c0 + lane] = v[0];
+  }
+  if (have_i) {
+    const size_t o = (size_t)b * n + i;
+    max_overlap[o] = best;
+    argmax[o] = count > 0 ? s_index[best_slot] : 0;
+  }
+  __syncthreads();
+  for (int j = tid; j < count; j += kThreads) {
+    float m = s_warp_max[0][j];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, s_warp_max[w][j]);
+    part[s_index[j]] = m;
+  }
+
+  // the last block of the image to arrive reduces its partials to gt_max
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(arrivals + b, 1u) == (unsigned)tiles - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (have_g && !valid) gt_max[(size_t)b * g_count + g] = -1.0f;
+  if (count > 0) {
+    // thread e takes gt slot e % count over every p-th tile, p = e / count
+    const int ways = kThreads / count;
+    const float* img = partials + (size_t)b * tiles * g_count;
+    float m = -1.0f;
+    if (tid < ways * count) {
+      const int col = s_index[tid % count];
+#pragma unroll 16
+      for (int t = tid / count; t < tiles; t += ways)
+        m = fmaxf(m, __ldcg(img + (size_t)t * g_count + col));
+    }
+    s_red[tid] = m;
+    __syncthreads();
+    if (tid < count) {
+      for (int p = 1; p < ways; ++p) m = fmaxf(m, s_red[p * count + tid]);
+      gt_max[(size_t)b * g_count + s_index[tid]] = m;
+    }
+  }
+  if (tid == 0) arrivals[b] = 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+assign_rows_kernel(const float4* __restrict__ anchors,
+                   const float4* __restrict__ gt,
                    const unsigned char* __restrict__ gt_valid,
                    const unsigned char* __restrict__ inside,
+                   const float* __restrict__ gt_max,
                    const float* __restrict__ partials, int n, int g_count,
-                   int tiles, float* __restrict__ max_overlap,
-                   long long* __restrict__ argmax, float* __restrict__ gt_max,
-                   unsigned char* __restrict__ tie) {
-  __shared__ GtSmem s;
+                   int tiles, unsigned char* __restrict__ tie) {
+  __shared__ float4 s_box[kMaxGt];
+  __shared__ float s_area[kMaxGt];
   __shared__ float s_gtmax[kMaxGt];
+  __shared__ int s_warp_count[kWarps];
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
   const int b = blockIdx.y;
-  load_gt(s, gt + (size_t)b * g_count * 4, gt_valid + (size_t)b * g_count,
-          g_count);
-  const float* part = partials + (size_t)b * tiles * g_count;
-  for (int g = threadIdx.x; g < g_count; g += kThreads) {
-    float m = -1.0f;
-    for (int t = 0; t < tiles; ++t)
-      m = fmaxf(m, part[(size_t)t * g_count + g]);
-    s_gtmax[g] = m;
-    if (blockIdx.x == 0) gt_max[(size_t)b * g_count + g] = m;
+
+  // every load up front: thread g's gt, its maximum and the tile's
+  // partial for it; this thread's anchor
+  const int g = tid;
+  bool cand = false;
+  float gm = 0.0f;
+  float4 box = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (g < g_count) {
+    const size_t og = (size_t)b * g_count + g;
+    gm = gt_max[og];
+    box = gt[og];
+    const bool valid = gt_valid[og] != 0;
+    const float p = partials[((size_t)b * tiles + tile) * g_count + g];
+    cand = valid && gm > 0.0f && p == gm;
+  }
+  const int i = tile * kTile + tid;
+  const size_t o = (size_t)b * n + i;
+  bool in = false;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i < n) {
+    in = inside[o] != 0;
+    a = anchors[i];
+  }
+
+  // the gt whose maximum this tile attains: the only ones it can tie
+  int count;
+  const int slot = compact(cand, s_warp_count, &count);
+  if (cand) {
+    s_box[slot] = box;
+    s_area[slot] = box_area(box);
+    s_gtmax[slot] = gm;
   }
   __syncthreads();
 
-  const unsigned char* ins = inside + (size_t)b * n;
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int i = blockIdx.x * kRowsTile + k * kThreads + threadIdx.x;
-    if (i >= n) break;
-    const float* p = anchors + (size_t)i * 4;
-    const float ax1 = p[0], ay1 = p[1], ax2 = p[2], ay2 = p[3];
-    const float aa = box_area(ax1, ay1, ax2, ay2);
-    const bool in = ins[i] != 0;
-    float best = 0.0f;
-    int best_g = 0;
-    bool t = false;
-    for (int g = 0; g < g_count; ++g) {
-      float v = -1.0f;
-      if (s.valid[g]) {
-        v = iou(ax1, ay1, ax2, ay2, aa, s.x1[g], s.y1[g], s.x2[g], s.y2[g],
-                s.area[g]);
-        const float gm = s_gtmax[g];
-        t |= in && gm > 0.0f && v == gm;
-      }
-      if (g == 0 || v > best) {  // strict: ties keep the lowest g
-        best = v;
-        best_g = g;
-      }
-    }
-    const size_t o = (size_t)b * n + i;
-    max_overlap[o] = best;
-    argmax[o] = best_g;
-    tie[o] = t;
+  if (i >= n) return;
+  bool t = false;
+  if (in && count > 0) {
+    const float aa = box_area(a);
+    for (int j = 0; j < count; ++j)
+      t |= iou(a, aa, s_box[j], s_area[j]) == s_gtmax[j];
   }
+  tie[o] = t;
 }
 
 }  // namespace
@@ -218,31 +329,34 @@ assign_rows_kernel(const float* __restrict__ anchors,
 extern "C" {
 
 // anchors (N, 4), gt (B, G, 4) float32, gt_valid (B, G) / inside (B, N)
-// bool -> partials (B, ceil(N / 2048), G) float32: per-tile maxima of the
-// IoU over inside anchors (-1 where a tile has none, or the gt is invalid).
+// bool -> max_overlap (B, N) float32, argmax (B, N) int64, gt_max (B, G)
+// float32, partials (B, ceil(N / 256), G) float32 (per-tile maxima of the
+// IoU over inside anchors; -1 where a tile has none, or the gt is invalid).
+// arrivals: B uint32, zero on entry, zero again on exit.
 int mxr_assign_gtmax(const float* anchors, const float* gt,
                      const unsigned char* gt_valid,
                      const unsigned char* inside, int batch, int n,
-                     int g_count, float* partials, void* stream) {
-  const int tiles = (n + kGtmaxTile - 1) / kGtmaxTile;
+                     int g_count, float* max_overlap, long long* argmax,
+                     float* gt_max, float* partials, unsigned int* arrivals,
+                     void* stream) {
+  const int tiles = (n + kTile - 1) / kTile;
   const dim3 grid(tiles, batch);
   assign_gtmax_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      anchors, gt, gt_valid, inside, n, g_count, tiles, partials);
+      (const float4*)anchors, (const float4*)gt, gt_valid, inside, n, g_count,
+      tiles, max_overlap, argmax, gt_max, partials, arrivals);
   return (int)cudaGetLastError();
 }
 
-// ... + partials -> max_overlap (B, N) float32, argmax (B, N) int64,
-// gt_max (B, G) float32, tie (B, N) bool.
+// ... + gt_max and partials of mxr_assign_gtmax -> tie (B, N) bool.
 int mxr_assign_rows(const float* anchors, const float* gt,
                     const unsigned char* gt_valid, const unsigned char* inside,
-                    const float* partials, int batch, int n, int g_count,
-                    float* max_overlap, long long* argmax, float* gt_max,
-                    unsigned char* tie, void* stream) {
-  const int tiles = (n + kGtmaxTile - 1) / kGtmaxTile;
-  const dim3 grid((n + kRowsTile - 1) / kRowsTile, batch);
+                    const float* gt_max, const float* partials, int batch,
+                    int n, int g_count, unsigned char* tie, void* stream) {
+  const int tiles = (n + kTile - 1) / kTile;
+  const dim3 grid(tiles, batch);
   assign_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      anchors, gt, gt_valid, inside, partials, n, g_count, tiles, max_overlap,
-      argmax, gt_max, tie);
+      (const float4*)anchors, (const float4*)gt, gt_valid, inside, gt_max,
+      partials, n, g_count, tiles, tie);
   return (int)cudaGetLastError();
 }
 

@@ -4,13 +4,16 @@
 The CUDA counterpart of ``mx_rcnn_tpu/kernels/assign_pallas.py``
 (``_assign_kernel``): the four reductions of the (N, G) anchor × gt IoU
 matrix that ``ops/assign_anchor.py`` needs, without the matrix.  Two
-kernels, each behind its own wrapper with its own launch count:
+kernels on tiles of ``TILE`` anchors, each behind its own wrapper with its
+own launch count:
 
-* :func:`assign_gtmax` — per-tile maxima of the IoU over inside anchors,
-  per gt: ``partials`` (B, ceil(N / 2048), G);
-* :func:`assign_rows` — ``gt_max`` from the partials, then per anchor the
-  max IoU, its first-index argmax and the "ties a positive per-gt max"
-  predicate.
+* :func:`assign_gtmax` — every IoU once, over the valid gt only: per
+  anchor the max IoU and its first-index argmax, the per-tile maxima over
+  inside anchors per gt (``partials`` (B, ceil(N / TILE), G)), and
+  ``gt_max``, reduced from the partials by the last block of each image;
+* :func:`assign_rows` — the "ties a positive per-gt max" predicate, with
+  the IoU recomputed only for the (tile, gt) pairs whose partial equals
+  ``gt_max``: no other tile can hold a tying anchor.
 
 :func:`assign_reduce` chains them: one launch of each per batch, whatever
 the batch size (the JAX kernel ran images one at a time under
@@ -36,22 +39,24 @@ from mx_rcnn_tpu_torch.ops.boxes import bbox_overlaps
 # the gt of an image sit in shared memory, one slot per gt (the TPU kernel
 # padded gt to one 128-lane row for the same reason)
 MAX_GT = 128
-GTMAX_TILE = 2048   # anchors per assign_gtmax block (256 threads × 8)
-ROWS_TILE = 1024    # anchors per assign_rows block (256 threads × 4)
+TILE = 256          # anchors per block of either kernel, one a thread
 # int32 anchor indices in the kernels; the image index is grid.y
-MAX_ANCHORS = 2 ** 31 - 1 - GTMAX_TILE
+MAX_ANCHORS = 2 ** 31 - 1 - TILE
 MAX_BATCH = 65535
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "mxr_assign_gtmax": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P]),
-    "mxr_assign_rows": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                             _P]),
+    "mxr_assign_gtmax": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P]),
+    "mxr_assign_rows": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
 }
+# (device index, stream) -> int32 arrival counters of assign_gtmax, one per
+# image: zero before a launch, and the launch leaves them at zero
+_ARRIVALS: dict = {}
 
 
 def n_tiles(n: int) -> int:
-    return (n + GTMAX_TILE - 1) // GTMAX_TILE
+    return (n + TILE - 1) // TILE
 
 
 def _lib() -> ctypes.CDLL:
@@ -111,6 +116,22 @@ def _check_contiguous(*ts: torch.Tensor) -> None:
     for t in ts:
         if not t.is_contiguous():
             raise ValueError("the assign kernels take contiguous tensors")
+    for t in ts[:2]:
+        if t.data_ptr() % 16:
+            raise ValueError("the assign kernels read anchors and gt_boxes "
+                             "as float4: they must be 16-byte aligned")
+
+
+def _check_phase1(anchors, gt_boxes, gt_max, partials) -> None:
+    b, g, _ = gt_boxes.shape
+    n = anchors.shape[0]
+    for name, t, shape in (("gt_max", gt_max, (b, g)),
+                           ("partials", partials, (b, n_tiles(n), g))):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or t.device != anchors.device):
+            raise ValueError(f"{name} must be {shape} float32 on "
+                             f"{anchors.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -123,12 +144,10 @@ def _masked_overlaps(anchors, gt_boxes, gt_valid, inside, dtype):
     return ov, torch.where(inside[:, :, None], ov, -1.0)
 
 
-def _reduce(ov, ov_in, gt_max, gt_valid):
-    """max_overlap, first-index argmax, gt_max and the tie predicate from
-    the masked matrices and a given ``gt_max``."""
-    tie = ((ov_in == gt_max[:, None, :]) & gt_valid[:, None, :]
-           & (gt_max[:, None, :] > 0)).any(dim=2)
-    return ov.max(dim=2).values, torch.argmax(ov, dim=2), gt_max, tie
+def _tie(ov_in, gt_max, gt_valid):
+    """The tie predicate from the inside-masked matrix and ``gt_max``."""
+    return ((ov_in == gt_max[:, None, :]) & gt_valid[:, None, :]
+            & (gt_max[:, None, :] > 0)).any(dim=2)
 
 
 def assign_reduce_plain(anchors: torch.Tensor, gt_boxes: torch.Tensor,
@@ -143,69 +162,95 @@ def assign_reduce_plain(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     then come in that type."""
     ov, ov_in = _masked_overlaps(anchors, gt_boxes, gt_valid, inside,
                                  iou_dtype)
-    return _reduce(ov, ov_in, ov_in.max(dim=1).values, gt_valid)
+    gt_max = ov_in.max(dim=1).values
+    return (ov.max(dim=2).values, torch.argmax(ov, dim=2), gt_max,
+            _tie(ov_in, gt_max, gt_valid))
 
 
 def gtmax_partials_plain(anchors: torch.Tensor, gt_boxes: torch.Tensor,
-                         gt_valid: torch.Tensor,
-                         inside: torch.Tensor) -> torch.Tensor:
-    """:func:`assign_gtmax`'s output: (B, ceil(N / 2048), G) maxima of the
-    IoU over the inside anchors of each 2048-anchor tile."""
-    _, ov_in = _masked_overlaps(anchors, gt_boxes, gt_valid, inside,
-                                torch.float32)
+                         gt_valid: torch.Tensor, inside: torch.Tensor):
+    """:func:`assign_gtmax`'s outputs: ``max_overlap``, ``argmax`` and
+    ``gt_max`` as :func:`assign_reduce_plain` gives them, and ``partials``
+    (B, ceil(N / TILE), G), the maxima of the IoU over the inside anchors
+    of each ``TILE``-anchor tile."""
+    ov, ov_in = _masked_overlaps(anchors, gt_boxes, gt_valid, inside,
+                                 torch.float32)
     b, n, g = ov_in.shape
     t = n_tiles(n)
-    ov_in = F.pad(ov_in, (0, 0, 0, t * GTMAX_TILE - n), value=-1.0)
-    return ov_in.view(b, t, GTMAX_TILE, g).max(dim=2).values
+    tiled = F.pad(ov_in, (0, 0, 0, t * TILE - n), value=-1.0)
+    return (ov.max(dim=2).values, torch.argmax(ov, dim=2),
+            ov_in.max(dim=1).values,
+            tiled.view(b, t, TILE, g).max(dim=2).values)
 
 
 def rows_plain(anchors: torch.Tensor, gt_boxes: torch.Tensor,
                gt_valid: torch.Tensor, inside: torch.Tensor,
-               partials: torch.Tensor):
-    """:func:`assign_rows`' outputs, with ``gt_max`` reduced from
-    ``partials`` as the kernel does."""
-    ov, ov_in = _masked_overlaps(anchors, gt_boxes, gt_valid, inside,
-                                 torch.float32)
-    return _reduce(ov, ov_in, partials.max(dim=1).values, gt_valid)
+               gt_max: torch.Tensor, partials: torch.Tensor) -> torch.Tensor:
+    """:func:`assign_rows`' output, ``is_gt_argmax`` (B, N) bool, from the
+    given ``gt_max``.  The kernel reads ``partials`` only to skip the tiles
+    that cannot tie, so with :func:`assign_gtmax`'s partials the plain
+    version needs ``gt_max`` alone."""
+    _, ov_in = _masked_overlaps(anchors, gt_boxes, gt_valid, inside,
+                                torch.float32)
+    return _tie(ov_in, gt_max, gt_valid)
 
 
 # ---- kernel wrappers --------------------------------------------------------
 
-def _gtmax_kernel(anchors, gt_boxes, gt_valid, inside) -> torch.Tensor:
+def _arrivals(dev: torch.device, b: int) -> torch.Tensor:
+    """Zeroed arrival counters for a launch of assign_gtmax on the current
+    stream.  A launch leaves them at zero, so they are kept per stream (one
+    launch at a time uses them); a buffer first made while the stream is
+    being captured into a CUDA graph is zeroed only when the graph replays,
+    so it is used for that capture alone and not kept."""
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < b:
+        buf = torch.zeros(max(b, 64), dtype=torch.int32, device=dev)
+        if not torch.cuda.is_current_stream_capturing():
+            _ARRIVALS[key] = buf
+    return buf
+
+
+def _gtmax_kernel(anchors, gt_boxes, gt_valid, inside):
     """Launch assign_gtmax on checked, contiguous CUDA tensors."""
-    b, g, _ = gt_boxes.shape
-    n = anchors.shape[0]
-    partials = torch.empty((b, n_tiles(n), g), dtype=torch.float32,
-                           device=anchors.device)
-    _launch("mxr_assign_gtmax", anchors, anchors.data_ptr(),
-            gt_boxes.data_ptr(), gt_valid.data_ptr(), inside.data_ptr(), b, n,
-            g, partials.data_ptr())
-    assign_gtmax.launches += 1
-    return partials
-
-
-def _rows_kernel(anchors, gt_boxes, gt_valid, inside, partials):
-    """Launch assign_rows on checked, contiguous CUDA tensors."""
     b, g, _ = gt_boxes.shape
     n = anchors.shape[0]
     dev = anchors.device
     max_overlap = torch.empty((b, n), dtype=torch.float32, device=dev)
     argmax = torch.empty((b, n), dtype=torch.int64, device=dev)
     gt_max = torch.empty((b, g), dtype=torch.float32, device=dev)
-    tie = torch.empty((b, n), dtype=torch.bool, device=dev)
+    partials = torch.empty((b, n_tiles(n), g), dtype=torch.float32,
+                           device=dev)
+    with torch.cuda.device(dev):
+        arrivals = _arrivals(dev, b)
+    _launch("mxr_assign_gtmax", anchors, anchors.data_ptr(),
+            gt_boxes.data_ptr(), gt_valid.data_ptr(), inside.data_ptr(), b, n,
+            g, max_overlap.data_ptr(), argmax.data_ptr(), gt_max.data_ptr(),
+            partials.data_ptr(), arrivals.data_ptr())
+    assign_gtmax.launches += 1
+    return max_overlap, argmax, gt_max, partials
+
+
+def _rows_kernel(anchors, gt_boxes, gt_valid, inside, gt_max, partials):
+    """Launch assign_rows on checked, contiguous CUDA tensors."""
+    b, g, _ = gt_boxes.shape
+    n = anchors.shape[0]
+    tie = torch.empty((b, n), dtype=torch.bool, device=anchors.device)
     _launch("mxr_assign_rows", anchors, anchors.data_ptr(),
             gt_boxes.data_ptr(), gt_valid.data_ptr(), inside.data_ptr(),
-            partials.data_ptr(), b, n, g, max_overlap.data_ptr(),
-            argmax.data_ptr(), gt_max.data_ptr(), tie.data_ptr())
+            gt_max.data_ptr(), partials.data_ptr(), b, n, g, tie.data_ptr())
     assign_rows.launches += 1
-    return max_overlap, argmax, gt_max, tie
+    return tie
 
 
 def assign_gtmax(anchors: torch.Tensor, gt_boxes: torch.Tensor,
-                 gt_valid: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
+                 gt_valid: torch.Tensor, inside: torch.Tensor):
     """Phase 1: anchors (N, 4) float32, gt_boxes (B, G ≤ 128, 4) float32,
-    gt_valid (B, G) bool, inside (B, N) bool → partials (B, ceil(N / 2048),
-    G) float32."""
+    gt_valid (B, G) bool, inside (B, N) bool → ``(max_overlap (B, N)
+    float32, argmax (B, N) int64, gt_max (B, G) float32, partials (B,
+    ceil(N / TILE), G) float32)``."""
     _check(anchors, gt_boxes, gt_valid, inside)
     if not _route(anchors):
         return gtmax_partials_plain(anchors, gt_boxes, gt_valid, inside)
@@ -218,23 +263,17 @@ assign_gtmax.launches = 0
 
 def assign_rows(anchors: torch.Tensor, gt_boxes: torch.Tensor,
                 gt_valid: torch.Tensor, inside: torch.Tensor,
-                partials: torch.Tensor):
-    """Phase 2: the inputs of :func:`assign_gtmax` plus its ``partials`` →
-    ``(max_overlap (B, N) float32, argmax (B, N) int64, gt_max (B, G)
-    float32, is_gt_argmax (B, N) bool)``."""
+                gt_max: torch.Tensor, partials: torch.Tensor) -> torch.Tensor:
+    """Phase 2: the inputs of :func:`assign_gtmax` plus its ``gt_max`` and
+    ``partials`` → ``is_gt_argmax`` (B, N) bool."""
     _check(anchors, gt_boxes, gt_valid, inside)
-    b, g, _ = gt_boxes.shape
-    n = anchors.shape[0]
-    if (partials.dtype != torch.float32
-            or tuple(partials.shape) != (b, n_tiles(n), g)
-            or partials.device != anchors.device):
-        raise ValueError(f"partials must be {(b, n_tiles(n), g)} float32 on "
-                         f"{anchors.device}, got {tuple(partials.shape)} "
-                         f"{partials.dtype} on {partials.device}")
+    _check_phase1(anchors, gt_boxes, gt_max, partials)
     if not _route(anchors):
-        return rows_plain(anchors, gt_boxes, gt_valid, inside, partials)
-    _check_contiguous(anchors, gt_boxes, gt_valid, inside, partials)
-    return _rows_kernel(anchors, gt_boxes, gt_valid, inside, partials)
+        return rows_plain(anchors, gt_boxes, gt_valid, inside, gt_max,
+                          partials)
+    _check_contiguous(anchors, gt_boxes, gt_valid, inside, gt_max, partials)
+    return _rows_kernel(anchors, gt_boxes, gt_valid, inside, gt_max,
+                        partials)
 
 
 assign_rows.launches = 0
@@ -250,4 +289,5 @@ def assign_reduce(anchors: torch.Tensor, gt_boxes: torch.Tensor,
         return assign_reduce_plain(anchors, gt_boxes, gt_valid, inside)
     args = (anchors, gt_boxes, gt_valid, inside)
     _check_contiguous(*args)
-    return _rows_kernel(*args, _gtmax_kernel(*args))
+    max_overlap, argmax, gt_max, partials = _gtmax_kernel(*args)
+    return max_overlap, argmax, gt_max, _rows_kernel(*args, gt_max, partials)

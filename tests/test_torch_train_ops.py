@@ -99,9 +99,11 @@ def port_reduce(anchors, gt, valid, inside):
     two kernels' plain versions, which must agree bitwise."""
     args = (t(anchors), t(gt[None]), t(valid[None]), t(inside[None]))
     out = [x[0].numpy() for x in assign_cuda.assign_reduce(*args)]
-    parts = assign_cuda.assign_gtmax(*args)
+    phase1 = assign_cuda.assign_gtmax(*args)
+    parts = phase1[3]
     assert parts.shape == (1, assign_cuda.n_tiles(len(anchors)), MAX_GT)
-    chained = [x[0].numpy() for x in assign_cuda.assign_rows(*args, parts)]
+    tie = assign_cuda.assign_rows(*args, *phase1[2:])
+    chained = [x[0].numpy() for x in phase1[:3] + (tie,)]
     for a, b in zip(out, chained, strict=True):
         np.testing.assert_array_equal(a, b)
     return out
@@ -173,9 +175,12 @@ def test_assign_wrappers_reject_bad_inputs():
         assign_cuda.assign_reduce(anchors.double(), gt, valid, inside)
     with pytest.raises(ValueError):
         assign_cuda.assign_reduce(anchors, gt, valid, inside[:, :5])
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="partials"):
         assign_cuda.assign_rows(anchors, gt, valid, inside,
-                                torch.zeros(1, 2, 4))
+                                torch.zeros(1, 4), torch.zeros(1, 2, 4))
+    with pytest.raises(ValueError, match="gt_max"):
+        assign_cuda.assign_rows(anchors, gt, valid, inside,
+                                torch.zeros(1, 3), torch.zeros(1, 1, 4))
     # a device that is neither the CPU nor the card: raise, never the
     # plain version
     with pytest.raises(ValueError, match="no assign kernel"):
