@@ -54,7 +54,23 @@ Phases, each printing its own lines:
    G = 100 valid gt for N = 21 888 and FPN's N = 155 520 (each assign row
    also carries the pair's summed time and the pair's bound); and the
    median train step wall time with the fused and the dense assign.
-6. One ``{"kernels": [...]}`` JSON line, then the last line
+6. The evaluation slice at full width: ``python -m
+   mx_rcnn_tpu_torch.test``'s ``test_rcnn`` with the weights the training
+   slice saved (ResNet-101, VOC's 21 classes, 600×1000, TEST config,
+   bfloat16 compute) on a VOC2007-layout devkit it writes (four 375×500
+   and 500×375 images, PNG bytes under ``.jpg`` names, so no JPEG decoder
+   is needed; whether PIL is importable is printed), two images a batch,
+   in three modes: serial host post-process, overlapped host
+   post-process, overlapped ``--device-postprocess``.  Each mode's mAP
+   lies in [0, 1]; the overlapped detections are bit-identical to the
+   serial ones; every device-route detection matches a host-route one
+   (score 1e-6, box 1e-3 px; the host keeps more only in ties at the
+   cap); the NMS kernels launch once a batch on the host route and twice
+   on the device route; ``reeval`` of the cache gives the same score.  At
+   the post-process's shape (B·20 rows of 300, 100 kept) the kernels'
+   kept rows equal ``nms_padded_batch``'s and are timed with their bound;
+   the synchronising CUDA calls of one batch's dispatch are listed.
+7. One ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
@@ -67,12 +83,15 @@ import argparse
 import dataclasses
 import json
 import os
+import pickle
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import types
+import zlib
 
 import numpy as np
 import torch
@@ -121,6 +140,16 @@ FPN_STRIDES = (4, 8, 16, 32, 64)
 CHAIN_THRESH = 0.25
 LOSS_KEYS = ("rpn_cls_loss", "rpn_bbox_loss", "rcnn_cls_loss",
              "rcnn_bbox_loss")
+# the evaluation slice's devkit: VOC's usual sizes (h, w) in both
+# orientations, landscape first so that each batch of two holds one; its
+# image set is 2007_<EVAL_SPLIT>; the classes its objects are drawn from
+EVAL_SIZES = ((375, 500), (375, 500), (500, 375), (500, 375))
+EVAL_SPLIT = "smoke"
+EVAL_CLASSES = ("aeroplane", "bicycle", "bird", "car", "dog", "person")
+# the test driver's flags for the slice: the full network at the TEST
+# config, pixels scaled as the training slice scaled them
+EVAL_FLAGS = ["--network", "resnet101", "--dataset", "PascalVOC",
+              "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}"]
 
 
 def log(phase: str, **kw) -> None:
@@ -764,12 +793,12 @@ def run_slice(port, predictor, cfg, images, batch_size: int):
 
 # ---- the training slice -------------------------------------------------------
 
-def train_slice(P, port, tcfg, dev, seed: int) -> dict:
+def train_slice(P, port, tcfg, dev, seed: int, ckpt_dir: str) -> dict:
     """SyntheticDataset → AnchorLoader → fit for one epoch, every kernel
     counter set to 0 just before ``fit`` and read just after; then
     ``FIT_STEPS`` steps on one fixed batch, and the weights saved
-    de-normalized and served by ``Predictor``.  Returns what the later
-    phases reuse."""
+    de-normalized under ``ckpt_dir`` (epoch ``FIT_STEPS``) and served by
+    ``Predictor``.  Returns what the later phases reuse."""
     scale = tcfg.tpu.SCALES[0]
     ds = P.SyntheticDataset(num_images=TRAIN_IMAGES,
                             num_classes=tcfg.NUM_CLASSES, height=scale[0],
@@ -792,70 +821,70 @@ def train_slice(P, port, tcfg, dev, seed: int) -> dict:
         step_walls.append(now - last[0])
         last[0] = now
 
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        prefix = os.path.join(ckpt_dir, "e2e")
-        for f in counters.values():
-            f.launches = 0
-        last[0] = time.perf_counter()
-        state = P.fit(tcfg, tmodel, tparams, loader, end_epoch=1,
-                      prefix=prefix, seed=seed, frequent=1, device=dev,
-                      batch_end_callback=on_step)
-        torch.cuda.synchronize()
-        launches = {k: f.launches for k, f in counters.items()}
-        steps = len(seen)
-        if steps != loader.steps_per_epoch:
-            fail(f"fit reported {steps} steps of {loader.steps_per_epoch}")
-        for name, count in launches.items():
-            if count != steps:
-                fail(f"{name} launched {count} times in {steps} train steps")
-        for i, m in enumerate(seen):
-            if not all(np.isfinite(v) for v in m.values()):
-                fail(f"non-finite train metrics at step {i}: {m}")
-        trained = P.export_jax_params(tmodel)
-        changed = {k for k in state.mask
-                   if not np.array_equal(trained[k], tparams[k])}
-        frozen = {k for k, t in state.mask.items() if not t}
-        if changed & frozen:
-            fail(f"{len(changed & frozen)} frozen leaves moved, e.g. "
-                 f"{sorted(changed & frozen)[:3]}")
-        if len(changed) != len(state.mask) - len(frozen):
-            fail(f"{len(state.mask) - len(frozen) - len(changed)} trainable "
-                 f"leaves did not move")
-        log("train_slice", network=tcfg.network.NETWORK,
-            classes=tcfg.NUM_CLASSES, dtype=tcfg.tpu.COMPUTE_DTYPE,
-            assign_fused=tcfg.tpu.ASSIGN_FUSED, records=len(roidb),
-            steps=steps, launches=launches, frozen_leaves=len(frozen),
-            trainable_moved=len(changed), step_wall_s=step_walls,
-            total_loss=[m["total_loss"] for m in seen])
+    prefix = os.path.join(ckpt_dir, "e2e")
+    for f in counters.values():
+        f.launches = 0
+    last[0] = time.perf_counter()
+    state = P.fit(tcfg, tmodel, tparams, loader, end_epoch=1,
+                  prefix=prefix, seed=seed, frequent=1, device=dev,
+                  batch_end_callback=on_step)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    steps = len(seen)
+    if steps != loader.steps_per_epoch:
+        fail(f"fit reported {steps} steps of {loader.steps_per_epoch}")
+    for name, count in launches.items():
+        if count != steps:
+            fail(f"{name} launched {count} times in {steps} train steps")
+    for i, m in enumerate(seen):
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"non-finite train metrics at step {i}: {m}")
+    trained = P.export_jax_params(tmodel)
+    changed = {k for k in state.mask
+               if not np.array_equal(trained[k], tparams[k])}
+    frozen = {k for k, t in state.mask.items() if not t}
+    if changed & frozen:
+        fail(f"{len(changed & frozen)} frozen leaves moved, e.g. "
+             f"{sorted(changed & frozen)[:3]}")
+    if len(changed) != len(state.mask) - len(frozen):
+        fail(f"{len(state.mask) - len(frozen) - len(changed)} trainable "
+             f"leaves did not move")
+    log("train_slice", network=tcfg.network.NETWORK,
+        classes=tcfg.NUM_CLASSES, dtype=tcfg.tpu.COMPUTE_DTYPE,
+        assign_fused=tcfg.tpu.ASSIGN_FUSED, records=len(roidb),
+        steps=steps, launches=launches, frozen_leaves=len(frozen),
+        trainable_moved=len(changed), step_wall_s=step_walls,
+        total_loss=[m["total_loss"] for m in seen])
 
-        # the loss must fall on one fixed batch
-        fixed = P.batch_put(next(iter(loader)), tcfg, dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        step_fn = P.make_train_step(tcfg)
-        losses = []
-        for _ in range(FIT_STEPS):
-            _, m = step_fn(state, fixed, generator=gen)
-            losses.append(float(m["total_loss"]))
-        tail = float(np.mean(losses[-5:]))
-        if not np.isfinite(losses).all() or tail >= losses[0]:
-            fail(f"the loss did not fall on one batch: first {losses[0]}, "
-                 f"mean of the last 5 {tail}")
-        log("train_fixed_batch", steps=FIT_STEPS, first=losses[0],
-            last5_mean=tail, losses=losses)
+    # the loss must fall on one fixed batch
+    fixed = P.batch_put(next(iter(loader)), tcfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    step_fn = P.make_train_step(tcfg)
+    losses = []
+    for _ in range(FIT_STEPS):
+        _, m = step_fn(state, fixed, generator=gen)
+        losses.append(float(m["total_loss"]))
+    tail = float(np.mean(losses[-5:]))
+    if not np.isfinite(losses).all() or tail >= losses[0]:
+        fail(f"the loss did not fall on one batch: first {losses[0]}, "
+             f"mean of the last 5 {tail}")
+    log("train_fixed_batch", steps=FIT_STEPS, first=losses[0],
+        last5_mean=tail, losses=losses)
 
-        # saved de-normalized, served by Predictor
-        path = P.epoch_path(prefix, FIT_STEPS)
-        P.save_params_npz(path, P.denormalize_for_save(
-            P.export_jax_params(tmodel), tcfg))
-        served = P.tester.Predictor(P.build_model(tcfg), path, tcfg,
-                                    device=dev)
-        records, walls = run_slice(
-            port, served, tcfg, [r["image_array"] for r in roidb[:BATCH]],
-            BATCH)
+    # saved de-normalized, served by Predictor
+    path = P.epoch_path(prefix, FIT_STEPS)
+    P.save_params_npz(path, P.denormalize_for_save(
+        P.export_jax_params(tmodel), tcfg))
+    served = P.tester.Predictor(P.build_model(tcfg), path, tcfg,
+                                device=dev)
+    records, walls = run_slice(
+        port, served, tcfg, [r["image_array"] for r in roidb[:BATCH]],
+        BATCH)
     log("train_served", records_per_image=[len(r) for r in records],
         batch_wall_s=walls)
     return {"cfg": tcfg, "model": tmodel, "state": state, "fixed": fixed,
-            "gen": gen, "step_fn": step_fn, "launches": launches}
+            "gen": gen, "step_fn": step_fn, "launches": launches,
+            "prefix": prefix, "epoch": FIT_STEPS}
 
 
 def check_fused_vs_dense(P, ctx, dev) -> None:
@@ -994,14 +1023,263 @@ def train_times(P, ctx, dev, main_anchors) -> list:
     return kernels
 
 
+# ---- the evaluation slice -----------------------------------------------------
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 → PNG bytes, 8-bit RGB, the rows' filter types
+    cycling None, Sub, Up, Average, Paeth, so the port's decoder meets each
+    (no image library needed)."""
+    h, w, c = img.shape
+    x = img.astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]                             # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                                   # up
+    ul = np.zeros_like(x)
+    ul[1:, 1:] = x[:-1, :-1]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    ftype = np.arange(h) % 5
+    pred = np.select([ftype[:, None, None] == t for t in range(1, 5)],
+                     [a, b, (a + b) >> 1, paeth], 0)
+    rows = np.concatenate([ftype[:, None], ((x - pred) & 0xFF).reshape(
+        h, w * c)], 1).astype(np.uint8)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def write_devkit(root: str, seed: int) -> str:
+    """A VOC2007-layout devkit under ``root`` with the images of
+    ``EVAL_SIZES`` (landscape first, so a batch of two holds one
+    orientation): noise with 1-3 solid rectangles of VOC classes, each
+    image PNG bytes under its ``.jpg`` name, one XML annotation per image,
+    ``ImageSets/Main/<EVAL_SPLIT>.txt``.  Returns the devkit path."""
+    rng = np.random.RandomState(seed)
+    devkit = os.path.join(root, "VOCdevkit")
+    voc = os.path.join(devkit, "VOC2007")
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets",
+                                                           "Main")):
+        os.makedirs(os.path.join(voc, sub), exist_ok=True)
+    ids = [f"{i:06d}" for i in range(len(EVAL_SIZES))]
+    for idx, (h, w) in zip(ids, EVAL_SIZES):
+        img = (rng.randn(h, w, 3) * 20 + 127).clip(0, 255).astype(np.uint8)
+        xml = [f"<annotation><filename>{idx}.jpg</filename><size><width>"
+               f"{w}</width><height>{h}</height><depth>3</depth></size>"]
+        for _ in range(rng.randint(1, 4)):
+            bw, bh = rng.randint(w // 5, w // 2), rng.randint(h // 5, h // 2)
+            x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            cls = EVAL_CLASSES[rng.randint(len(EVAL_CLASSES))]
+            img[y1:y1 + bh, x1:x1 + bw] = rng.randint(40, 255, 3)
+            xml.append(f"<object><name>{cls}</name><difficult>0</difficult>"
+                       f"<bndbox><xmin>{x1 + 1}</xmin><ymin>{y1 + 1}</ymin>"
+                       f"<xmax>{x1 + bw}</xmax><ymax>{y1 + bh}</ymax>"
+                       f"</bndbox></object>")
+        with open(os.path.join(voc, "JPEGImages", idx + ".jpg"), "wb") as f:
+            f.write(png_bytes(img))
+        with open(os.path.join(voc, "Annotations", idx + ".xml"), "w") as f:
+            f.write("".join(xml) + "</annotation>")
+    with open(os.path.join(voc, "ImageSets", "Main", EVAL_SPLIT + ".txt"),
+              "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return devkit
+
+
+def match_routes(host, device, cap: int) -> int:
+    """Every device-route detection must match a host-route detection of
+    the same image and class (score within 1e-6, box within 1e-3 px); the
+    host route may keep more only in rows tied at the cap.  Returns the
+    number of matched detections."""
+    matched = 0
+    for i in range(len(host[1])):
+        extra = []
+        for k in range(1, len(host)):
+            h, d = host[k][i], device[k][i]
+            used = np.zeros(len(h), bool)
+            for row in d:
+                hit = np.flatnonzero(
+                    ~used & (np.abs(h[:, 4] - row[4]) <= 1e-6)
+                    & (np.abs(h[:, :4] - row[:4]).max(1) <= 1e-3))
+                if not len(hit):
+                    fail(f"device detection {row.tolist()} of class {k} in "
+                         f"image {i} has no host counterpart")
+                used[hit[0]] = True
+            matched += len(d)
+            extra.append(h[~used, 4])
+        extra = np.concatenate(extra)
+        n_host = sum(len(host[k][i]) for k in range(1, len(host)))
+        cut = min(host[k][i][:, 4].min() for k in range(1, len(host))
+                  if len(host[k][i]))
+        if len(extra) and (n_host <= cap or np.abs(extra - cut).max() > 1e-6):
+            fail(f"image {i}: the host route keeps {len(extra)} detections "
+                 f"the device route does not, not all tied at the cap")
+    return matched
+
+
+def sync_report(P, predictor, batch, te) -> dict:
+    """The synchronising CUDA calls (``torch.cuda.set_sync_debug_mode``)
+    in one batch's ``batch_put`` + ``predict`` + ``predict_detections``:
+    any of them stalls the host inside the dispatch and collapses the
+    overlapped loop.  A copy from pageable host memory, the kind
+    ``Predictor._put`` avoids, runs first as the control that the detector
+    sees one.  Returns the distinct warnings of each, reported, not
+    failed on."""
+    import warnings
+
+    def syncs(fn) -> list:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sorted({str(w.message).splitlines()[0] for w in caught
+                       if "prototype feature" not in str(w.message)})
+
+    def dispatch():
+        put = predictor.batch_put(batch)
+        predictor.predict(put["images"], put["im_info"])
+        predictor.predict_detections(put["images"], put["im_info"],
+                                     te.MAX_PER_IMAGE, te.THRESH)
+
+    return {"pageable_copy_control": syncs(
+                lambda: torch.as_tensor(batch["im_info"]).to("cuda")),
+            "dispatch": syncs(dispatch)}
+
+
+def eval_slice(P, prefix: str, epoch: int, work: str, seed: int,
+               device=None, flags=EVAL_FLAGS) -> dict:
+    """``python -m mx_rcnn_tpu_torch.test``'s ``test_rcnn`` on a devkit
+    written by :func:`write_devkit`, with the weights the training slice
+    saved, in three modes: serial host post-process (``--eval-inflight
+    0``), overlapped host post-process (the default) and overlapped
+    ``--device-postprocess``; a serial warm-up first.  The NMS counters are
+    set to 0 just before each mode and read just after.  Returns the
+    figures the later phases report."""
+    try:
+        import PIL  # noqa: F401 — reported, not needed: the devkit is PNG
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    devkit = write_devkit(work, seed)
+    common = flags + ["--image_set", f"2007_{EVAL_SPLIT}",
+                      "--root_path", os.path.join(work, "data"),
+                      "--dataset_path", devkit]
+    args = common + ["--prefix", prefix, "--epoch", str(epoch),
+                     "--batch_images", str(BATCH)]
+    if device is not None:
+        args += ["--device", str(device)]
+    modes = {"warm-up": ["--eval-inflight", "0"],
+             "serial": ["--eval-inflight", "0"],
+             "pipelined": [],
+             "pipelined+devpost": ["--device-postprocess"]}
+    n_batches = -(-len(EVAL_SIZES) // BATCH)
+    stats, boxes, launches = {}, {}, {}
+    for mode, extra in modes.items():
+        cache = os.path.join(work, f"dets-{mode}.pkl")
+        P.nms_cuda.nms_mask.launches = P.nms_cuda.nms_sweep.launches = 0
+        out = P.test_driver.test_rcnn(P.test_driver.parse_args(
+            args + extra + ["--dets_cache", cache]))
+        launches[mode] = {"nms_mask": P.nms_cuda.nms_mask.launches,
+                          "nms_sweep": P.nms_cuda.nms_sweep.launches}
+        want = n_batches * (2 if "devpost" in mode else 1)
+        for name, count in launches[mode].items():
+            if count != want:
+                fail(f"eval [{mode}]: {name} launched {count} times in "
+                     f"{n_batches} batches, expected {want}")
+        if not (np.isfinite(out["mAP"]) and 0.0 <= out["mAP"] <= 1.0):
+            fail(f"eval [{mode}]: mAP {out['mAP']} is not in [0, 1]")
+        with open(cache, "rb") as f:
+            boxes[mode] = pickle.load(f)
+        stats[mode] = out
+    for k in range(1, len(boxes["serial"])):
+        for i, (a, b) in enumerate(zip(boxes["pipelined"][k],
+                                       boxes["serial"][k], strict=True)):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"eval: the overlapped loop's detections of class {k} "
+                     f"in image {i} differ from the serial loop's")
+    cfg = P.config_from_args(P.test_driver.parse_args(args), train=False)
+    matched = match_routes(boxes["serial"], boxes["pipelined+devpost"],
+                           cfg.TEST.MAX_PER_IMAGE)
+    re = P.reeval.reeval(P.reeval.parse_args(
+        common + ["--detections", os.path.join(work, "dets-serial.pkl")]))
+    if re != {k: v for k, v in stats["serial"].items()
+              if k != "eval_pipeline"}:
+        fail("reeval of the serial det_cache gives another score")
+    log("eval_slice", network=cfg.network.NETWORK, classes=cfg.NUM_CLASSES,
+        dtype=cfg.tpu.COMPUTE_DTYPE, images=len(EVAL_SIZES),
+        sizes=[list(s) for s in EVAL_SIZES], batch=BATCH, pil=has_pil,
+        launches=launches, device_matched=matched,
+        mAP={m: s["mAP"] for m, s in stats.items()},
+        pipelined_bit_identical=True, reeval_identical=True,
+        pipeline={m: s["eval_pipeline"] for m, s in stats.items()})
+    return {"cfg": cfg, "args": args, "stats": stats, "launches": launches}
+
+
+def postprocess_times(P, ev, dev) -> list:
+    """The NMS pair at the device post-process's shape (B·(K−1) rows of
+    ``TEST.RPN_POST_NMS_TOP_N`` candidates, ``max_per_image`` kept): the
+    kernels' ``keep_idx``/``keep_mask`` identical to ``nms_padded_batch``
+    on the same CUDA inputs, then timed against their plain versions
+    (:func:`time_kernels`), and the synchronising calls of one batch's
+    dispatch reported.  Returns the rows."""
+    cfg, te = ev["cfg"], ev["cfg"].TEST
+    targs = P.test_driver.parse_args(ev["args"])
+    predictor = P.tester.Predictor(P.build_model(cfg),
+                                   P.load_eval_params(targs), cfg, device=dev)
+    roidb = P.PascalVOC(cfg.dataset.TEST_IMAGE_SET, targs.root_path,
+                        cfg.dataset.DATASET_PATH).gt_roidb()
+    batch = next(iter(P.TestLoader(roidb, cfg, batch_size=BATCH)))
+    put = predictor.batch_put(batch)
+    rois, roi_valid, cls_prob, deltas, _ = predictor.predict(
+        put["images"], put["im_info"])
+    rows = P.per_class_rows(rois, roi_valid, cls_prob, deltas,
+                            torch.as_tensor(put["im_info"], device=dev),
+                            num_classes=cfg.NUM_CLASSES, thresh=te.THRESH)
+    b, k1, r, _ = rows[0].shape
+    bs, ss, sv = P.rank_rows(*(t.reshape(b * k1, r, *t.shape[3:])
+                               for t in rows))
+    ki, km = P.nms_cuda.nms_bitmask(bs, sv, te.MAX_PER_IMAGE, te.NMS)
+    pi, pm = P.nms_padded_batch(bs, ss, te.MAX_PER_IMAGE, te.NMS, sv)
+    if not (torch.equal(ki, pi) and torch.equal(km, pm)):
+        fail("the NMS kernels keep other rows than nms_padded_batch at the "
+             "post-process shape")
+    kernels = time_kernels(P.nms_cuda, bs, sv, te.MAX_PER_IMAGE, te.NMS)
+    for kern in kernels:
+        if kern["max_abs_err"] != 0.0:
+            fail(f"{kern['name']} disagrees with its plain version at the "
+                 f"post-process shape")
+    syncs = sync_report(P, predictor, batch, te)
+    log("times_postprocess", shape={"rows": b * k1, "n": r,
+                                    "max_out": te.MAX_PER_IMAGE,
+                                    "thresh": te.NMS},
+        candidates=int(sv.sum()), identical=True,
+        launches_per_batch={"host": ev["launches"]["serial"],
+                            "devpost": ev["launches"]["pipelined+devpost"]},
+        kernels=kernels, syncs=syncs)
+    return kernels
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
     before importing anything of the port)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mx_rcnn_tpu_torch import test as test_driver
     from mx_rcnn_tpu_torch.config import generate_config
     from mx_rcnn_tpu_torch.data import image as image_mod
-    from mx_rcnn_tpu_torch.data.loader import AnchorLoader
+    from mx_rcnn_tpu_torch.data.loader import AnchorLoader, TestLoader
+    from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
     from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from mx_rcnn_tpu_torch.eval import tester
     from mx_rcnn_tpu_torch.kernels import _build, assign_cuda, nms_cuda
@@ -1010,8 +1288,13 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.ops import postprocess as post
     from mx_rcnn_tpu_torch.ops.anchors import all_anchors, generate_anchors
     from mx_rcnn_tpu_torch.ops.assign_anchor import uniform_draws
-    from mx_rcnn_tpu_torch.ops.nms import nms_padded
+    from mx_rcnn_tpu_torch.ops.nms import (nms_padded, nms_padded_batch,
+                                           rank_rows)
+    from mx_rcnn_tpu_torch.ops.postprocess import per_class_rows
     from mx_rcnn_tpu_torch.ops.proposal import propose, proposal_candidates
+    from mx_rcnn_tpu_torch.tools import reeval
+    from mx_rcnn_tpu_torch.tools.common import (config_from_args,
+                                                load_eval_params)
     from mx_rcnn_tpu_torch.train.checkpoint import (denormalize_for_save,
                                                     epoch_path, save_params_npz)
     from mx_rcnn_tpu_torch.train.train_step import make_train_step
@@ -1185,11 +1468,21 @@ def main() -> int:
         tpu__ASSIGN_FUSED=True)
     tcfg = tcfg.replace(network=dataclasses.replace(tcfg.network,
                                                     PIXEL_STDS=PIXEL_STDS))
-    ctx = train_slice(P, port, tcfg, dev, args.seed)
-    check_fused_vs_dense(P, ctx, dev)
+    with tempfile.TemporaryDirectory() as work:
+        ctx = train_slice(P, port, tcfg, dev, args.seed, work)
+        check_fused_vs_dense(P, ctx, dev)
 
-    # ---- 5b. training times ---------------------------------------------------
-    kernels = train_times(P, ctx, dev, main_anchors)
+        # ---- 5b. training times -----------------------------------------------
+        kernels = train_times(P, ctx, dev, main_anchors)
+        prefix, epoch = ctx["prefix"], ctx["epoch"]
+        del ctx
+        torch.cuda.empty_cache()
+
+        # ---- 6. the evaluation slice at full width ----------------------------
+        t0 = time.perf_counter()
+        ev = eval_slice(P, prefix, epoch, work, args.seed)
+        postprocess_times(P, ev, dev)
+        log("eval_total", seconds=time.perf_counter() - t0)
     log("total", seconds=time.perf_counter() - t_start)
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

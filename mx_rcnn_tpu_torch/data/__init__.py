@@ -1,2 +1,2 @@
-"""Image staging and device prep, the synthetic dataset, the roidb and
-the training loader."""
+"""Image files, staging and device prep, the synthetic and PASCAL VOC
+datasets, the roidb and the loaders."""

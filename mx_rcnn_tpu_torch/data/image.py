@@ -9,10 +9,18 @@ flipped record, normalises, zero-pads and regroups to space-to-depth
 (:func:`prep_images`).  No cv2: the machine with the card has none, so the
 host's pre-shrink of an oversized raw reproduces cv2's ``uint8`` resize in
 numpy (:func:`resize_uint8`).
+
+Image files (counterpart of ``get_image``): :func:`get_image` reads the
+format from the file's signature, as cv2 does, and decodes PNG itself
+(:func:`decode_png`, ``zlib`` and numpy) and JPEG through PIL when PIL is
+installed; :func:`image_size` reads (h, w) from the header alone.
 """
 
 from __future__ import annotations
 
+import os
+import struct
+import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -189,7 +197,7 @@ def space_to_depth2(im: np.ndarray) -> np.ndarray:
 
 def prep_images(staged: torch.Tensor, raw_hw: torch.Tensor,
                 ratio: torch.Tensor, im_info: torch.Tensor, *,
-                pixel_means: Sequence[float], pixel_stds: Sequence[float],
+                pixel_means, pixel_stds,
                 s2d: bool, dtype: torch.dtype = torch.float32,
                 flip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Staged raw batch → network input, on the tensors' device.
@@ -199,6 +207,8 @@ def prep_images(staged: torch.Tensor, raw_hw: torch.Tensor,
     Wb/2, 12) with ``s2d``: resampled (mirrored where ``flip``: the raw
     bytes arrive unflipped, the roidb's boxes already are),
     ``(v − mean) / std``, zero outside the effective extent.
+    ``pixel_means``/``pixel_stds``: three numbers each, or (3,) float32
+    tensors already on the device (no host copy then).
     """
     b, hb, wb, c = staged.shape
     dev = staged.device
@@ -216,3 +226,158 @@ def prep_images(staged: torch.Tensor, raw_hw: torch.Tensor,
              .permute(0, 1, 3, 2, 4, 5)
              .reshape(b, hb // 2, wb // 2, 4 * c))
     return v.to(dtype)
+
+
+# ---- image files --------------------------------------------------------------
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIG = b"\xff\xd8\xff"
+# JPEG start-of-frame markers: every SOFn but DHT (C4), JPG (C8) and DAC (CC)
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+# PNG colour types of 8-bit samples this decoder reads: gray, RGB, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+
+
+def _png_chunks(data: bytes):
+    """(type, payload) of every chunk after the signature, CRCs checked."""
+    pos = len(_PNG_SIG)
+    while pos + 12 <= len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if len(body) != n or zlib.crc32(kind + body) != crc:
+            raise ValueError(f"corrupt PNG chunk {kind!r}")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+    raise ValueError("PNG ends without an IEND chunk")
+
+
+def _png_unfilter(filt: np.ndarray, ftype: np.ndarray) -> np.ndarray:
+    """Undo PNG's per-row filters on (H, W, C) int32 filtered samples of
+    8-bit depth (the left neighbour of a sample is the same channel of the
+    previous pixel).  Sub, Average and Paeth depend on the reconstructed
+    left neighbour and every filter on the row above, so the pixels are
+    reconstructed one anti-diagonal y + x = d at a time, all of a diagonal
+    at once, each row by its own filter."""
+    h, w, c = filt.shape
+    out = np.zeros((h + 1, w + 1, c), np.int32)   # row 0 and column 0: zero
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h, d + 1))
+        xs = d - ys
+        a = out[ys + 1, xs]                        # left
+        b = out[ys, xs + 1]                        # up
+        cc = out[ys, xs]                           # up-left
+        p = a + b - cc
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+        t = ftype[ys][:, None]
+        pred = np.select([t == 1, t == 2, t == 3, t == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[ys + 1, xs + 1] = (filt[ys, xs] + pred) & 0xFF
+    return out[1:, 1:]
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes → RGB uint8 (H, W, 3), as ``cv2.imread(IMREAD_COLOR)`` then
+    BGR→RGB gives it: gray replicated to three channels, alpha dropped.
+    Reads 8-bit gray, RGB and RGBA images without interlace; any other
+    kind raises ``ValueError``."""
+    if not data.startswith(_PNG_SIG):
+        raise ValueError("not a PNG file")
+    header, idat = None, []
+    for kind, body in _png_chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    w, h, depth, ctype, comp, filt_method, interlace = header
+    if depth != 8 or ctype not in _PNG_CHANNELS or comp or filt_method \
+            or interlace:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace} (this decoder "
+                         f"reads 8-bit gray, RGB and RGBA, not interlaced)")
+    c = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (w * c + 1):
+        raise ValueError(f"PNG data holds {raw.size} bytes, expected "
+                         f"{h * (w * c + 1)}")
+    rows = raw.reshape(h, w * c + 1)
+    ftype = rows[:, 0].astype(np.int32)
+    if (ftype > 4).any():
+        raise ValueError(f"unknown PNG filter type {int(ftype.max())}")
+    im = _png_unfilter(rows[:, 1:].reshape(h, w, c).astype(np.int32), ftype)
+    im = im.astype(np.uint8)
+    if c == 1:
+        return np.repeat(im, 3, axis=2)
+    return np.ascontiguousarray(im[..., :3])
+
+
+def _read_head(path: str, n: int) -> bytes:
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    with open(path, "rb") as f:
+        return f.read(n)
+
+
+def get_image(path: str, flipped: bool = False) -> np.ndarray:
+    """Image file → RGB uint8 (H, W, 3) (counterpart of the JAX package's
+    ``cv2.imread`` + BGR→RGB).  The format is taken from the file's
+    signature, not its name, as cv2 does: PNG through :func:`decode_png`;
+    JPEG through PIL when it is importable, else a ``RuntimeError`` that
+    names the missing decoder.  ``flipped`` mirrors the columns."""
+    head = _read_head(path, 8)
+    if head.startswith(_PNG_SIG):
+        with open(path, "rb") as f:
+            im = decode_png(f.read())
+    elif head.startswith(_JPEG_SIG):
+        try:
+            from PIL import Image
+        except ImportError:
+            raise RuntimeError(
+                f"{path}: JPEG decoding needs PIL (Pillow), which is not "
+                f"installed; the port decodes PNG itself") from None
+        with Image.open(path) as f:
+            im = np.asarray(f.convert("RGB"))
+    else:
+        raise ValueError(f"{path}: neither PNG nor JPEG")
+    if flipped:
+        im = im[:, ::-1, :]
+    return im
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(height, width) of a PNG or JPEG file from its header (the PNG IHDR,
+    the JPEG start-of-frame marker), without decoding the pixels."""
+    head = _read_head(path, 24)
+    if head.startswith(_PNG_SIG):
+        w, h = struct.unpack(">II", head[16:24])
+        return int(h), int(w)
+    if not head.startswith(_JPEG_SIG):
+        raise ValueError(f"{path}: neither PNG nor JPEG")
+    with open(path, "rb") as f:
+        f.seek(2)
+        while True:
+            byte = f.read(1)
+            if not byte:
+                break
+            if byte != b"\xff":
+                continue
+            marker = f.read(1)
+            while marker == b"\xff":                 # fill bytes
+                marker = f.read(1)
+            if not marker:
+                break
+            m = marker[0]
+            if m == 0x01 or 0xD0 <= m <= 0xD9:       # no length follows
+                continue
+            n, = struct.unpack(">H", f.read(2))
+            if m in _SOF:
+                _, h, w = struct.unpack(">BHH", f.read(5))
+                return int(h), int(w)
+            f.seek(n - 2, os.SEEK_CUR)
+    raise ValueError(f"{path}: no JPEG start-of-frame marker")

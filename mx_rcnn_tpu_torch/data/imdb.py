@@ -9,13 +9,16 @@ The roidb contract is the reference's: a list of per-image dicts
      gt_overlaps, max_classes, max_overlaps, flipped: bool}
 
 plus ``append_flipped_images`` (x-mirror the boxes, mark flipped — the
-pixels are mirrored when the batch is prepped) and ``filter_roidb``.  The
-pickle cache, external proposals and the VOC/COCO readers are not
-ported.
+pixels are mirrored when the batch is prepped), ``filter_roidb`` and the
+pickle cache (``root_path/cache/{name}_{tag}.pkl``, the JAX package's file
+names and plain numpy/dict contents, so either package reads the other's
+cache).  External proposals are not ported.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import List
 
 import numpy as np
@@ -37,8 +40,32 @@ class IMDB:
     def num_classes(self) -> int:
         return len(self.classes)
 
+    @property
+    def cache_path(self) -> str:
+        p = os.path.join(self.root_path, "cache")
+        os.makedirs(p, exist_ok=True)
+        return p
+
     def gt_roidb(self) -> list:
         raise NotImplementedError
+
+    def evaluate_detections(self, detections) -> dict:
+        raise NotImplementedError
+
+    def load_cached(self, tag: str, make):
+        """``make()``'s result, pickled once under :attr:`cache_path`
+        and read back from there afterwards."""
+        cache_file = os.path.join(self.cache_path, f"{self.name}_{tag}.pkl")
+        if os.path.exists(cache_file):
+            with open(cache_file, "rb") as f:
+                data = pickle.load(f)
+            logger.info("%s %s loaded from %s", self.name, tag, cache_file)
+            return data
+        data = make()
+        with open(cache_file, "wb") as f:
+            pickle.dump(data, f, pickle.HIGHEST_PROTOCOL)
+        logger.info("%s wrote %s cache to %s", self.name, tag, cache_file)
+        return data
 
     def append_flipped_images(self, roidb: list) -> list:
         """Double the roidb with x-flipped records: boxes mirrored on the

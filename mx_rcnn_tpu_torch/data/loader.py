@@ -1,5 +1,6 @@
-"""The training loader (counterpart of ``mx_rcnn_tpu/data/loader.py:
-AnchorLoader`` on its device-prep route; reference ``rcnn/core/loader.py``).
+"""The loaders (counterparts of ``mx_rcnn_tpu/data/loader.py:AnchorLoader``
+and ``TestLoader`` on their device-prep route; reference
+``rcnn/core/loader.py``).
 
 Anchor targets are assigned on the card, inside the train step, so a
 batch carries only what the step needs: raw ``uint8`` pixels staged in the
@@ -10,10 +11,16 @@ resampled, mirrored and normalised on the card
 (``train/trainer.py:batch_put``).  Aspect grouping puts each batch in one
 bucket shape; a seeded ``RandomState`` draws the shuffle, the wrap of a
 short last batch and the scale, in the JAX package's order, so both
-loaders plan the same epochs.
+loaders plan the same epochs.  Records without inline pixels (``image_array``)
+are read from their file by ``data/image.py:get_image``, unflipped: the
+card mirrors them.
 
-Not ported: the host cv2 path, the worker pool, the prefetch thread,
-replay mixing, bad-record isolation and multi-host partitions.
+``TestLoader`` walks the roidb in order, one scale, and pads the last
+batch with repeats of its last image (``indices``, ``batch_valid``).
+
+Not ported: the host cv2 path, the worker pool, the prefetch thread (a
+batch is read and staged on the consumer's thread), replay mixing,
+bad-record isolation and multi-host partitions.
 """
 
 from __future__ import annotations
@@ -23,18 +30,16 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 from mx_rcnn_tpu_torch.config import Config
-from mx_rcnn_tpu_torch.data.image import stage_raw_to_bucket
+from mx_rcnn_tpu_torch.data.image import get_image, stage_raw_to_bucket
 
 
 def _load_record(rec: dict, cfg: Config, scale: Tuple[int, int]) -> dict:
     """roidb record → one staged sample (host numpy)."""
-    if "image_array" not in rec:
-        raise NotImplementedError(
-            f"{rec['image']}: reading image files is not ported (the port "
-            f"has no image decoder); see ROADMAP.md")
+    im = rec["image_array"] if "image_array" in rec else get_image(
+        rec["image"])
     stride = max(cfg.network.IMAGE_STRIDE, cfg.network.RPN_FEAT_STRIDE)
     staged, raw_hw, ratio, im_info = stage_raw_to_bucket(
-        np.ascontiguousarray(rec["image_array"]), scale, stride)
+        np.ascontiguousarray(im), scale, stride)
     s = float(im_info[2])
     g = cfg.tpu.MAX_GT
     boxes = np.zeros((g, 4), np.float32)
@@ -117,3 +122,43 @@ class AnchorLoader:
         for chunk, scale in self._epoch_plan():
             yield _stack([_load_record(self.roidb[int(i)], self.cfg, scale)
                           for i in chunk])
+
+
+class TestLoader:
+    """Evaluation loader: the roidb in order, no shuffle, ``SCALES[0]``;
+    the last batch is padded with repeats of its last image, and
+    ``batch_valid`` marks the real rows, ``indices`` their roidb index.
+    Batches are staged raw ``uint8`` with the ``raw_hw``/``prep_ratio``
+    sidecars, prepped on the card by ``Predictor.batch_put``.  A batch
+    holds one bucket shape, so a batch of several images must not mix
+    landscape and portrait images."""
+
+    __test__ = False  # not a pytest class
+
+    def __init__(self, roidb: list, cfg: Config, batch_size: int = 1):
+        self.roidb = roidb
+        self.cfg = cfg
+        self.batch_size = batch_size
+
+    def __len__(self) -> int:
+        return (len(self.roidb) + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        scale = self.cfg.tpu.SCALES[0]
+        n = len(self.roidb)
+        for start in range(0, n, self.batch_size):
+            idx = list(range(start, min(start + self.batch_size, n)))
+            pad = self.batch_size - len(idx)
+            samples = [_load_record(self.roidb[i], self.cfg, scale)
+                       for i in idx]
+            shapes = {s["images"].shape for s in samples}
+            if len(shapes) > 1:
+                raise ValueError(
+                    f"images {idx} fall in different buckets {sorted(shapes)}"
+                    f": a batch holds one orientation (use batch size 1)")
+            samples += [samples[-1]] * pad
+            batch = _stack(samples)
+            batch["indices"] = np.asarray(idx + [idx[-1]] * pad, np.int32)
+            batch["batch_valid"] = np.asarray([True] * len(idx)
+                                              + [False] * pad)
+            yield batch

@@ -3,8 +3,8 @@ driver runs with no data on disk.
 
 Images are noise with solid-colour rectangles at the gt boxes (class ↔
 colour), drawn from numpy seeds exactly as the JAX package draws them, so
-the two packages see the same pixels and boxes.  The evaluation methods
-wait for the port's VOC scorer.
+the two packages see the same pixels and boxes.  Detections are scored by
+the VOC scorer (AP at IoU 0.5, area under the PR curve).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 
 from mx_rcnn_tpu_torch.data.imdb import IMDB
+from mx_rcnn_tpu_torch.eval.voc_eval import voc_eval
 
 
 class SyntheticDataset(IMDB):
@@ -67,3 +68,20 @@ class SyntheticDataset(IMDB):
             })
         self._roidb = roidb
         return roidb
+
+    def evaluate_detections(self, detections) -> dict:
+        """Greedy-match AP at IoU 0.5 per class through the VOC scorer;
+        returns {class: AP, 'mAP': mean}."""
+        recs = {}
+        for i, rec in enumerate(self.gt_roidb()):
+            recs[i] = [{"name": self.classes[c], "difficult": 0,
+                        "bbox": list(map(float, b))}
+                       for b, c in zip(rec["boxes"], rec["gt_classes"])]
+        aps = {}
+        for k, cls in enumerate(self.classes):
+            if k == 0:
+                continue
+            aps[cls] = voc_eval(detections[k], recs, cls, ovthresh=0.5,
+                                use_07_metric=False)
+        aps["mAP"] = float(np.mean(list(aps.values())))
+        return aps

@@ -1,25 +1,34 @@
-"""Inference driver (counterpart of ``mx_rcnn_tpu/eval/tester.py``:
-``Predictor``, ``Predictor.predict``, ``im_detect``).
+"""Inference and evaluation driver (counterpart of
+``mx_rcnn_tpu/eval/tester.py``: ``Predictor``, ``predict``,
+``predict_detections``, ``im_detect``, ``_im_detect_device``,
+``_Progress``, ``pred_eval``).
 
 ``Predictor`` binds converted weights to a model on one device;
 ``im_detect`` runs a batch and maps every image's boxes back to its
-original frame, ready for ``ops.postprocess.per_class_nms``.  The JAX
-package's program registry, mesh plans, int8 variants, mask and fused
-serve programs are not ported yet (ROADMAP.md).
+original frame, ready for ``ops.postprocess.per_class_nms``;
+``pred_eval`` runs a dataset through it and scores the detections.  The
+JAX package's program registry, mesh plans, int8 variants, mask pass,
+drawing and telemetry spans are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Union
+import pickle
+import time
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.data.image import prep_images
+from mx_rcnn_tpu_torch.logger import logger
 from mx_rcnn_tpu_torch.models.detector import FasterRCNN
-from mx_rcnn_tpu_torch.ops.postprocess import decode_image_boxes
+from mx_rcnn_tpu_torch.ops.postprocess import (decode_image_boxes,
+                                               device_dets_to_per_class,
+                                               device_postprocess,
+                                               per_class_nms)
 from mx_rcnn_tpu_torch.utils.convert_jax import load_jax_params
 
 INFER_DTYPES = ("float32", "bfloat16")
@@ -67,6 +76,9 @@ class Predictor:
                 for t in (*model.parameters(), *model.buffers()):
                     t.copy_(t.to(torch.bfloat16))
         self.model = model.to(self.device).eval()
+        net = cfg.network
+        self._means = self._put(np.asarray(net.PIXEL_MEANS, np.float32))
+        self._stds = self._put(np.asarray(net.PIXEL_STDS, np.float32))
 
     def batch_put(self, batch: dict) -> dict:
         """Move a batch to the device.  A staged raw batch (keys
@@ -76,18 +88,24 @@ class Predictor:
         out = dict(batch)
         images = self._put(batch["images"])
         if "raw_hw" in batch:
-            net = self.cfg.network
             images = prep_images(
                 images, self._put(out.pop("raw_hw")),
                 self._put(out.pop("prep_ratio")),
                 self._put(batch["im_info"], torch.float32),
-                pixel_means=net.PIXEL_MEANS, pixel_stds=net.PIXEL_STDS,
-                s2d=net.HOST_S2D)
+                pixel_means=self._means, pixel_stds=self._stds,
+                s2d=self.cfg.network.HOST_S2D)
         out["images"] = images
         return out
 
     def _put(self, x, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device, dtype)
+        """``x`` on the device.  Host arrays bound for the card go through
+        pinned memory with a non-blocking copy: a copy from pageable memory
+        waits for all the work queued before it, which would stall the
+        host until the previous batch's forward is done."""
+        t = torch.as_tensor(x)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device, dtype)
 
     @torch.inference_mode()
     def predict(self, images, im_info):
@@ -95,6 +113,25 @@ class Predictor:
         cls_prob, bbox_deltas, roi_scores)``, tensors on the device."""
         return self.model.predict(self._put(images),
                                   self._put(im_info, torch.float32))
+
+    @torch.inference_mode()
+    def predict_detections(self, images, im_info, max_per_image: int,
+                           thresh: float):
+        """The forward and the device post-process
+        (``ops.postprocess.device_postprocess``, the per-class NMS of the
+        batch on the NMS kernels when ``TEST.CXX_PROPOSAL``) → ``(dets
+        (B, cap, 6) [x1,y1,x2,y2,score,cls], valid (B, cap))``, still on
+        the device.  The forward's outputs are float32 before the box
+        math, whatever the compute dtype."""
+        info = self._put(im_info, torch.float32)
+        rois, roi_valid, cls_prob, bbox_deltas, _ = self.model.predict(
+            self._put(images), info)
+        cfg = self.cfg
+        return device_postprocess(
+            rois.float(), roi_valid, cls_prob.float(), bbox_deltas.float(),
+            info, num_classes=cfg.NUM_CLASSES, thresh=float(thresh),
+            nms_thresh=cfg.TEST.NMS, max_per_image=int(max_per_image),
+            use_kernel=cfg.TEST.CXX_PROPOSAL)
 
 
 def im_detect(predictor: Predictor, batch: dict):
@@ -109,3 +146,184 @@ def im_detect(predictor: Predictor, batch: dict):
     n = int(np.sum(batch.get("batch_valid", np.ones(len(rois), bool))))
     return [(cls_prob[b], decode_image_boxes(rois[b], bbox_deltas[b], im_info[b]),
              roi_valid[b]) for b in range(n)]
+
+
+def _im_detect_device(predictor: Predictor, batch: dict, max_per_image: int,
+                      thresh: float, num_classes: int) -> list:
+    """One batch through :meth:`Predictor.predict_detections` → per valid
+    batch row, the per-class ``[None, (N1, 5), ...]`` list that
+    ``per_class_nms`` returns, so ``all_boxes`` fills alike on both
+    routes."""
+    dets, dvalid = predictor.predict_detections(
+        batch["images"], batch["im_info"], max_per_image, thresh)
+    dets, dvalid = dets.cpu().numpy(), dvalid.cpu().numpy()
+    n = int(np.sum(batch.get("batch_valid", np.ones(len(dets), bool))))
+    return [device_dets_to_per_class(dets[b], dvalid[b], num_classes)
+            for b in range(n)]
+
+
+class _Progress:
+    """Eval progress: one log line per ``every`` images, whatever the batch
+    size and the order batches complete in."""
+
+    def __init__(self, total: int, every: int = 100):
+        self.total = total
+        self.every = max(int(every), 1)
+        self._next = self.every
+        self.t0 = time.perf_counter()
+
+    def update(self, done: int) -> None:
+        if done < self._next:
+            return
+        self._next = (done // self.every + 1) * self.every
+        rate = max(done, 1) / max(time.perf_counter() - self.t0, 1e-9)
+        logger.info("im_detect: %d/%d  %.3fs/im  %.1f imgs/s", done,
+                    self.total, 1.0 / rate, rate)
+
+
+def _probe_det_cache(det_cache: str) -> None:
+    """Fail on an unwritable ``det_cache`` before the dataset runs: a
+    throwaway file is written and removed beside it."""
+    if os.path.isdir(det_cache):
+        raise IsADirectoryError(f"det_cache is a directory: {det_cache}")
+    d = os.path.dirname(det_cache)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    probe = f"{det_cache}.probe.{os.getpid()}"
+    open(probe, "wb").close()
+    os.remove(probe)
+
+
+def _write_det_cache(det_cache: str, all_boxes) -> None:
+    """Pickle ``all_boxes`` to a temporary file and rename it, so
+    ``det_cache`` is only ever complete or absent."""
+    tmp = f"{det_cache}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, det_cache)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    logger.info("cached detections to %s", det_cache)
+
+
+def pred_eval(predictor: Predictor, test_loader, imdb,
+              max_per_image: Optional[int] = None,
+              thresh: Optional[float] = None,
+              vis: bool = False,
+              with_masks: bool = False,
+              det_cache: Optional[str] = None,
+              inflight: Optional[int] = None,
+              host_workers: Optional[int] = None,
+              device_postprocess: bool = False) -> dict:
+    """The dataset loop: ``all_boxes[cls][image]`` = (N, 5)
+    [x1,y1,x2,y2,score] after the per-class score threshold, NMS and the
+    per-image cap; then ``imdb.evaluate_detections``.
+
+    ``det_cache``: pickle the final ``all_boxes`` there (probed before the
+    loop, written through a rename after it) for ``tools/reeval.py``.
+
+    ``inflight`` (default ``cfg.tpu.EVAL_INFLIGHT``): the window of the
+    overlapped loop (``eval/pipeline.py``), which post-processes batch N
+    on ``host_workers`` threads while batch N+1 runs on the card;
+    ``all_boxes`` is bit-identical to the serial loop (``inflight=0``) at
+    any depth.
+
+    ``device_postprocess``: decode, per-class NMS and cap on the card
+    (:meth:`Predictor.predict_detections`); the host reads back
+    ``max_per_image`` rows per image.  Exact score ties at the cap may
+    resolve differently from the host route.
+
+    Returns the scorer's dict, plus ``"eval_pipeline"``: the loop's
+    mode, images, wall time, images per second, loader wait and, for the
+    overlapped loop, its readback wait, host post-process time, the time
+    the loop waited on it and the overlap fraction
+    ``1 − post_wait / host_post``.
+    """
+    if vis:
+        raise NotImplementedError("pred_eval(vis=True): drawing needs cv2 "
+                                  "and is not ported")
+    if with_masks:
+        raise NotImplementedError("pred_eval(with_masks=True): the mask "
+                                  "branch is not ported (ROADMAP.md A.7)")
+    cfg = predictor.cfg
+    if max_per_image is None:
+        max_per_image = cfg.TEST.MAX_PER_IMAGE
+    if thresh is None:
+        thresh = cfg.TEST.THRESH
+    if inflight is None:
+        inflight = cfg.tpu.EVAL_INFLIGHT
+    if host_workers is None:
+        host_workers = cfg.tpu.EVAL_HOST_WORKERS
+    num_classes = imdb.num_classes
+    num_images = imdb.num_images
+    if det_cache:
+        _probe_det_cache(det_cache)
+
+    all_boxes: List[List] = [[None for _ in range(num_images)]
+                             for _ in range(num_classes)]
+    progress = _Progress(num_images)
+    stats: dict = {}
+    if inflight and int(inflight) > 0:
+        from mx_rcnn_tpu_torch.eval.pipeline import run_pipelined
+        stats = run_pipelined(
+            predictor, test_loader, all_boxes=all_boxes,
+            num_classes=num_classes, max_per_image=max_per_image,
+            thresh=thresh, nms_thresh=cfg.TEST.NMS,
+            device_postprocess=device_postprocess, inflight=int(inflight),
+            host_workers=int(host_workers), progress=progress)
+        done, loader_wait = stats["images"], stats["loader_wait_s"]
+        mode = stats["mode"]
+    else:
+        mode = "serial+devpost" if device_postprocess else "serial"
+        done = 0
+        loader_wait = 0.0
+        it = iter(test_loader)
+        while True:
+            t_wait = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            loader_wait += time.perf_counter() - t_wait
+            batch = predictor.batch_put(batch)
+            if device_postprocess:
+                dets = _im_detect_device(predictor, batch, max_per_image,
+                                         thresh, num_classes)
+            else:
+                dets = im_detect(predictor, batch)
+            for b, row in enumerate(dets):
+                i = int(batch["indices"][b])
+                if device_postprocess:
+                    dets_pc = row
+                else:
+                    scores, boxes, valid = row
+                    dets_pc = per_class_nms(scores, boxes, valid, num_classes,
+                                            thresh, cfg.TEST.NMS,
+                                            max_per_image)
+                for k in range(1, num_classes):
+                    all_boxes[k][i] = dets_pc[k]
+                done += 1
+            progress.update(done)
+    wall = time.perf_counter() - progress.t0
+    rate = done / max(wall, 1e-9)
+    host_post = stats.get("host_post_s", 0.0)
+    post_wait = stats.get("post_wait_s", 0.0)
+    meta = dict(mode=mode, images=done, imgs_per_sec=rate, wall_s=wall,
+                loader_wait_s=loader_wait,
+                readback_wait_s=stats.get("readback_wait_s", 0.0),
+                host_post_s=host_post, post_wait_s=post_wait,
+                overlap_frac=(max(0.0, 1.0 - post_wait / host_post)
+                              if host_post > 0 else 0.0),
+                inflight=int(inflight), host_workers=int(host_workers),
+                device_postprocess=bool(device_postprocess))
+    logger.info("pred_eval[%s]: %d images  Wall=%.1fs  LoaderWait=%.1fs  "
+                "%.1f imgs/s  overlap %.2f", mode, done, wall, loader_wait,
+                rate, meta["overlap_frac"])
+    if det_cache:
+        _write_det_cache(det_cache, all_boxes)
+    out = imdb.evaluate_detections(all_boxes)
+    out["eval_pipeline"] = meta
+    return out

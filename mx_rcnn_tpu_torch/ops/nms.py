@@ -6,6 +6,9 @@
   ``nms_padded_batch`` runs it over each image of a batch: the plain
   version of the CUDA bitmask kernel (``kernels/nms_cuda.py``), which
   serves CPU tensors with it.
+* ``nms_ranked`` — greedy NMS over rows of UNSORTED candidates → score-
+  ranked padded detections: the per-class NMS of the device post-process,
+  every row of a batch in one call (one launch of each NMS kernel).
 * ``nms`` — host numpy greedy NMS over ``(N, 5)`` rows, the per-class NMS
   of the eval post-process.
 
@@ -74,6 +77,55 @@ def nms_padded_batch(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
             for b in range(boxes.shape[0])]
     return (torch.stack([o[0] for o in outs]),
             torch.stack([o[1] for o in outs]))
+
+
+def rank_rows(boxes: torch.Tensor, scores: torch.Tensor,
+              valid: torch.Tensor | None = None):
+    """Rows of candidates sorted by descending score, the NMS input of
+    :func:`nms_ranked`: (R, N, 4) boxes, (R, N) scores and valid →
+    ``(boxes (R, N, 4) float32 contiguous, scores (R, N) float32, valid
+    (R, N) bool)``.  Invalid candidates score ``-1e10`` and sink below
+    every real one; equal scores keep their index order (a stable sort, as
+    ``jnp.argsort(-s)``)."""
+    s = scores.to(torch.float32)
+    if valid is not None:
+        s = torch.where(valid, s, _NEG)
+    ss, order = torch.sort(s, dim=1, descending=True, stable=True)
+    bs = torch.gather(boxes.to(torch.float32), 1,
+                      order[..., None].expand(-1, -1, 4)).contiguous()
+    return bs, ss, ss > _NEG / 2
+
+
+def nms_ranked(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+               iou_thresh: float, valid: torch.Tensor | None = None,
+               use_kernel: bool = False):
+    """Greedy NMS over rows of unsorted candidates → score-ranked padded
+    detections (counterpart of ``mx_rcnn_tpu/ops/nms.py:nms_ranked``, with
+    the rows as a leading batch dimension).
+
+    Args:
+      boxes: (R, N, 4); scores: (R, N); valid: optional (R, N) bool.
+      max_out: kept slots per row.
+      use_kernel: the CUDA bitmask kernels (``kernels/nms_cuda.py:
+        nms_bitmask``, one launch of each for all R rows, the plain version
+        on CPU tensors); else :func:`nms_padded_batch`.
+
+    Returns ``dets`` (R, max_out, 5) float32 [x1,y1,x2,y2,score], each row
+    score-descending with padded slots zeroed, and ``keep_mask`` (R,
+    max_out) bool.
+    """
+    bs, ss, sv = rank_rows(boxes, scores, valid)
+    if use_kernel:
+        from mx_rcnn_tpu_torch.kernels.nms_cuda import nms_bitmask
+
+        keep_idx, keep_mask = nms_bitmask(bs, sv, max_out, iou_thresh)
+    else:
+        keep_idx, keep_mask = nms_padded_batch(bs, ss, max_out, iou_thresh,
+                                               sv)
+    k = keep_idx.long()
+    dets = torch.cat([torch.gather(bs, 1, k[..., None].expand(-1, -1, 4)),
+                      torch.gather(ss, 1, k)[..., None]], dim=-1)
+    return torch.where(keep_mask[..., None], dets, 0.0), keep_mask
 
 
 def nms(dets: np.ndarray, thresh: float) -> list:

@@ -2,10 +2,13 @@
 ``train_end2end.py``), on the card unless given ``--device cpu``.
 
     python -m mx_rcnn_tpu_torch.train_end2end --synthetic --num-steps 5
+    python -m mx_rcnn_tpu_torch.train_end2end --image_set 2007_trainval \
+        --dataset_path data/VOCdevkit
 
-generate_config (+ ``--cfg PATH=VALUE`` overrides) → the synthetic imdb
-(``--synthetic``; the VOC and COCO readers are not ported) → flip →
-filter → ``AnchorLoader`` → seeded random weights in the JAX layout
+generate_config (+ ``--cfg PATH=VALUE`` overrides) → the dataset
+(``tools/common.py:get_imdb``: PASCAL VOC read from disk, or the synthetic
+imdb with ``--synthetic``) → flip → filter → ``AnchorLoader`` → seeded
+random weights in the JAX layout
 (``utils/convert_jax.py:random_params``) → ``fit``, with an epoch
 checkpoint ``{prefix}-{epoch:04d}.npz`` that ``eval/tester.py:Predictor``
 loads.  ``--synthetic`` sets ``PIXEL_STDS=127`` as the JAX driver does:
@@ -15,17 +18,14 @@ random weights cannot absorb the raw 0..255 pixel scale.
 from __future__ import annotations
 
 import argparse
-import ast
-import dataclasses
 import os
 
-from mx_rcnn_tpu_torch.config import (generate_config, list_datasets,
-                                      list_networks)
 from mx_rcnn_tpu_torch.data.loader import AnchorLoader
-from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from mx_rcnn_tpu_torch.eval.tester import resolve_device
 from mx_rcnn_tpu_torch.logger import logger, setup_logging
 from mx_rcnn_tpu_torch.models.detector import build_model
+from mx_rcnn_tpu_torch.tools.common import (add_common_args, config_from_args,
+                                            get_imdb, get_train_roidb)
 from mx_rcnn_tpu_torch.train.trainer import fit
 from mx_rcnn_tpu_torch.utils.convert_jax import random_params
 
@@ -33,11 +33,7 @@ from mx_rcnn_tpu_torch.utils.convert_jax import random_params
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="Train Faster R-CNN end2end "
                                  "(PyTorch port)")
-    ap.add_argument("--network", default="resnet101", choices=list_networks())
-    ap.add_argument("--dataset", default="PascalVOC", choices=list_datasets())
-    ap.add_argument("--synthetic", action="store_true",
-                    help="train on the synthetic dataset (no files needed)")
-    ap.add_argument("--synthetic_images", type=int, default=64)
+    add_common_args(ap)
     ap.add_argument("--num-steps", type=int, default=0, dest="num_steps",
                     help="cap steps per epoch (smoke runs)")
     ap.add_argument("--end_epoch", type=int, default=10)
@@ -49,26 +45,7 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; raises without "
                          "one)")
-    ap.add_argument("--cfg", action="append", default=[],
-                    metavar="PATH=VALUE",
-                    help="config override, repeatable: double-underscore "
-                         "paths with python-literal values (e.g. --cfg "
-                         "tpu__SCALES='((128,192),)')")
     return ap.parse_args(argv)
-
-
-def config_from_args(args):
-    overrides = {}
-    for item in args.cfg:
-        key, sep, val = item.partition("=")
-        if not sep:
-            raise ValueError(f"--cfg expects PATH=VALUE, got {item!r}")
-        overrides[key] = ast.literal_eval(val)
-    cfg = generate_config(args.network, args.dataset, **overrides)
-    if args.synthetic:
-        cfg = cfg.replace(network=dataclasses.replace(
-            cfg.network, PIXEL_STDS=(127.0, 127.0, 127.0)))
-    return cfg
 
 
 class CappedLoader:
@@ -91,19 +68,9 @@ class CappedLoader:
 def train_net(args):
     setup_logging()
     device = resolve_device(args.device)
-    cfg = config_from_args(args)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the port reads no dataset from disk yet: pass --synthetic "
-            "(see ROADMAP.md)")
-    s = cfg.tpu.SCALES[0]
-    imdb = SyntheticDataset(num_images=args.synthetic_images,
-                            num_classes=cfg.NUM_CLASSES, height=s[0],
-                            width=s[1])
-    roidb = imdb.gt_roidb()
-    if cfg.TRAIN.FLIP:
-        roidb = imdb.append_flipped_images(roidb)
-    roidb = imdb.filter_roidb(roidb)
+    cfg = config_from_args(args, train=True)
+    imdb = get_imdb(args, cfg)
+    roidb = get_train_roidb(imdb, cfg)
     batch_size = cfg.TRAIN.BATCH_IMAGES
     loader = AnchorLoader(roidb, cfg, batch_size, shuffle=cfg.TRAIN.SHUFFLE)
     if args.num_steps:

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports without JAX and without the
 JAX package, no file of it names ``jax``, ``flax``, ``cv2`` or
-``mx_rcnn_tpu``, and its entry points (``Predictor``, ``fit``,
-``train_end2end``) never fall back to the CPU when asked for the card.  Plus the one test that needs the
-card (``cuda`` marker): the NMS kernels against their plain versions, and
+``mx_rcnn_tpu``, PIL is imported only inside ``get_image``'s JPEG branch,
+and its entry points (``Predictor``, ``fit``, ``train_end2end``, ``test``)
+never fall back to the CPU when asked for the card.  Plus the one test that
+needs the card (``cuda`` marker): the NMS kernels against their plain versions, and
 a chain cut inside a 64-row block.
 """
 
@@ -37,7 +38,8 @@ def test_imports_with_jax_and_the_jax_package_blocked():
     mods = port_modules()
     for mod in ("kernels.nms_cuda", "kernels.assign_cuda", "ops.assign_anchor",
                 "ops.sample_rois", "data.loader", "train.trainer",
-                "train_end2end"):
+                "train_end2end", "data.pascal_voc", "eval.voc_eval",
+                "eval.pipeline", "tools.common", "tools.reeval", "test"):
         assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -65,6 +67,25 @@ def test_no_port_file_imports_forbidden_modules():
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+def test_pil_is_imported_only_in_the_jpeg_branch():
+    """The card's Python may have no PIL: no module imports it at load
+    time, and the one import sits in ``data/image.py:get_image``."""
+    found = []
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text(), str(path))
+        funcs = [f for f in ast.walk(tree)
+                 if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))]
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            if any(n.split(".")[0] == "PIL" for n in names):
+                owner = [f.name for f in funcs
+                         if f.lineno <= node.lineno <= f.end_lineno]
+                found.append((path.relative_to(PKG).as_posix(), owner))
+    assert found == [("data/image.py", ["get_image"])]
+
+
 def test_predictor_without_a_device_raises_when_there_is_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -85,6 +106,28 @@ def test_train_end2end_without_a_card_raises(monkeypatch, tmp_path):
         train_end2end.train_net(args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fit(None, None, {}, None)
+    assert not list(tmp_path.iterdir())
+
+
+def test_test_driver_without_a_card_raises(monkeypatch, tmp_path):
+    """``python -m mx_rcnn_tpu_torch.test`` without ``--device`` needs the
+    card; the flags whose machinery is not ported raise by name."""
+    from mx_rcnn_tpu_torch import test as test_driver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = test_driver.parse_args(["--synthetic", "--prefix",
+                                   str(tmp_path / "e2e")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        test_driver.test_rcnn(args)
+    for flags, name in ((["--vis"], "--vis"),
+                        (["--calibrate-shard", "4"], "--calibrate-shard"),
+                        (["--devices", "2"], "--devices"),
+                        (["--program-cache", "x"], "--program-cache"),
+                        (["--obs-port", "9"], "--obs-port"),
+                        (["--infer_dtype", "int8"], "int8")):
+        with pytest.raises(NotImplementedError, match=name):
+            test_driver.test_rcnn(test_driver.parse_args(
+                ["--synthetic", "--device", "cpu"] + flags))
     assert not list(tmp_path.iterdir())
 
 
