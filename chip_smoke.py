@@ -70,7 +70,28 @@ Phases, each printing its own lines:
    the post-process's shape (B·20 rows of 300, 100 kept) the kernels'
    kept rows equal ``nms_padded_batch``'s and are timed with their bound;
    the synchronising CUDA calls of one batch's dispatch are listed.
-7. One ``{"kernels": [...]}`` JSON line, then the last line
+7. The serving slice at full width, on the same checkpoint and flags:
+   ``serve.driver.build_engine`` (``Predictor`` → ``ServeEngine``), then
+   ``make_server`` on a Unix socket in host-NMS mode and in ``--serve-e2e``
+   mode (one ``Predictor``), serve batch 2, ``max_delay_ms`` 10:
+   ``warmup`` first-dispatches 2 programs; 240 requests from 4 client
+   threads at six raw sizes in both orientations (the devkit's drawing;
+   the last, 1200×1600, pre-shrunk on the host) all answer 200 with the
+   offline ``Predictor`` path's records on the same pixels in the batch
+   row each request rode (score 1e-6, box 1e-3 px; whether the two rows
+   differ is printed), and every size has detections there; no first
+   dispatch after warmup; one h2d copy, dispatch and readback a batch; the
+   NMS kernels launch once a batch in host-NMS mode and twice in e2e mode.
+   Per mode, the traffic's requests/s, the p50/p99 of the engine's
+   ``serve/{queue_wait,service_time,request_time,host_prep}`` histograms
+   (bucketed) and of the clients' round trips (exact), the mean of each batch phase (``serve/{h2d,forward,readback,
+   postprocess}`` spans, host clock; the forward call returns once its
+   launches are queued, so the readback holds the wait for the card),
+   batch fill and readback bytes a batch are printed.  Then ``python -m
+   mx_rcnn_tpu_torch.serve --serve-e2e`` as a process: ready on
+   ``/readyz``, four requests answered, ``/metrics?format=prom`` read,
+   exit code 0 on SIGTERM.
+8. One ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
@@ -89,6 +110,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import zlib
@@ -150,6 +172,14 @@ EVAL_CLASSES = ("aeroplane", "bicycle", "bird", "car", "dog", "person")
 # config, pixels scaled as the training slice scaled them
 EVAL_FLAGS = ["--network", "resnet101", "--dataset", "PascalVOC",
               "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}"]
+# the serving slice's raw sizes (h, w), both orientations; the last is
+# larger than the 608×1024 bucket (the host pre-shrink); its requests a
+# mode, sent by its client threads over the server's Unix socket (enough
+# that a p99 is not just the slowest request: the 3rd slowest of 240)
+SERVE_SIZES = ((375, 500), (500, 375), (600, 1000), (1000, 600), (480, 640),
+               (1200, 1600))
+SERVE_REQUESTS = 240
+SERVE_CLIENTS = 4
 
 
 def log(phase: str, **kw) -> None:
@@ -1056,11 +1086,26 @@ def png_bytes(img: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def boxes_image(rng, h: int, w: int):
+    """Low-contrast noise with 1-3 solid rectangles, each given a VOC class
+    of ``EVAL_CLASSES`` → (uint8 (h, w, 3) image, [(x1, y1, bw, bh, cls)])
+    in 0-based pixels."""
+    img = (rng.randn(h, w, 3) * 20 + 127).clip(0, 255).astype(np.uint8)
+    boxes = []
+    for _ in range(rng.randint(1, 4)):
+        bw, bh = rng.randint(w // 5, w // 2), rng.randint(h // 5, h // 2)
+        x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+        cls = EVAL_CLASSES[rng.randint(len(EVAL_CLASSES))]
+        img[y1:y1 + bh, x1:x1 + bw] = rng.randint(40, 255, 3)
+        boxes.append((x1, y1, bw, bh, cls))
+    return img, boxes
+
+
 def write_devkit(root: str, seed: int) -> str:
     """A VOC2007-layout devkit under ``root`` with the images of
     ``EVAL_SIZES`` (landscape first, so a batch of two holds one
-    orientation): noise with 1-3 solid rectangles of VOC classes, each
-    image PNG bytes under its ``.jpg`` name, one XML annotation per image,
+    orientation) drawn by :func:`boxes_image`, each image PNG bytes under
+    its ``.jpg`` name, one XML annotation per image,
     ``ImageSets/Main/<EVAL_SPLIT>.txt``.  Returns the devkit path."""
     rng = np.random.RandomState(seed)
     devkit = os.path.join(root, "VOCdevkit")
@@ -1070,14 +1115,10 @@ def write_devkit(root: str, seed: int) -> str:
         os.makedirs(os.path.join(voc, sub), exist_ok=True)
     ids = [f"{i:06d}" for i in range(len(EVAL_SIZES))]
     for idx, (h, w) in zip(ids, EVAL_SIZES):
-        img = (rng.randn(h, w, 3) * 20 + 127).clip(0, 255).astype(np.uint8)
+        img, boxes = boxes_image(rng, h, w)
         xml = [f"<annotation><filename>{idx}.jpg</filename><size><width>"
                f"{w}</width><height>{h}</height><depth>3</depth></size>"]
-        for _ in range(rng.randint(1, 4)):
-            bw, bh = rng.randint(w // 5, w // 2), rng.randint(h // 5, h // 2)
-            x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
-            cls = EVAL_CLASSES[rng.randint(len(EVAL_CLASSES))]
-            img[y1:y1 + bh, x1:x1 + bw] = rng.randint(40, 255, 3)
+        for x1, y1, bw, bh, cls in boxes:
             xml.append(f"<object><name>{cls}</name><difficult>0</difficult>"
                        f"<bndbox><xmin>{x1 + 1}</xmin><ymin>{y1 + 1}</ymin>"
                        f"<xmax>{x1 + bw}</xmax><ymax>{y1 + bh}</ymax>"
@@ -1270,11 +1311,299 @@ def postprocess_times(P, ev, dev) -> list:
     return kernels
 
 
+# ---- the serving slice --------------------------------------------------------
+
+def records_equal(got, want) -> bool:
+    """The same count and classes in score order, scores within 1e-6,
+    boxes within 1e-3 px (the eval phase's tolerance)."""
+    return len(got) == len(want) and all(
+        d["cls"] == e["cls"] and abs(d["score"] - e["score"]) <= 1e-6
+        and np.abs(np.subtract(d["bbox"], e["bbox"])).max() <= 1e-3
+        for d, e in zip(got, want))
+
+
+def offline_records(P, predictor, cfg, img, e2e: bool) -> list:
+    """One image through the offline ``Predictor`` path in both rows of a
+    batch of two (the image paired with itself): ``batch_put`` →
+    ``predict`` → host decode and ``per_class_nms``, or
+    ``predict_detections`` (the device post-process) →
+    ``device_dets_to_per_class``.  Returns the records of row 0 and of row
+    1: the library's convolutions and matmuls may split a batch's rows
+    into tiles differently, so an image's last bits can depend on its
+    row, and a served request is held against the row it rode."""
+    te = cfg.TEST
+    stride = max(cfg.network.IMAGE_STRIDE, cfg.network.RPN_FEAT_STRIDE)
+    s, hw, r, info = P.image_mod.stage_raw_to_bucket(img, cfg.tpu.SCALES[0],
+                                                     stride)
+    batch = predictor.batch_put({
+        "images": np.stack([s, s]), "raw_hw": np.stack([hw, hw]),
+        "prep_ratio": np.stack([r, r]), "im_info": np.stack([info, info])})
+    if e2e:
+        dets, valid = predictor.predict_detections(
+            batch["images"], batch["im_info"], te.MAX_PER_IMAGE, te.THRESH)
+        dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+        per_cls = [P.post.device_dets_to_per_class(dets[b], valid[b],
+                                                   cfg.NUM_CLASSES)
+                   for b in range(2)]
+    else:
+        per_cls = [P.post.per_class_nms(scores, boxes, valid,
+                                        cfg.NUM_CLASSES, te.THRESH, te.NMS,
+                                        te.MAX_PER_IMAGE)
+                   for scores, boxes, valid in P.tester.im_detect(predictor,
+                                                                  batch)]
+    return [P.post.detections_to_records(d) for d in per_cls]
+
+
+def hist_delta_ms(P, hist, before: dict, q: float):
+    """Quantile (ms) of the observations a Hist took since ``before`` (its
+    ``to_dict``): the serving traffic without the warmup's requests."""
+    now = hist.to_dict()
+    counts = [a - b for a, b in zip(now["buckets"], before["buckets"])]
+    v = P.quantile_from_counts(P.HIST_LE, counts,
+                               now["count"] - before["count"], q)
+    return None if v is None else v * 1e3
+
+
+def serve_mode(P, predictor, engine, cfg, sock: str, images: list,
+               e2e: bool) -> dict:
+    """One mode of the in-process server: ``make_server`` on ``sock``,
+    ``warmup`` (2 programs), then ``SERVE_REQUESTS`` requests from
+    ``SERVE_CLIENTS`` threads over the socket with the NMS counters set to
+    0 just before and read just after; every reply 200, no first dispatch,
+    1 h2d copy / dispatch / readback a batch, the NMS kernels 1 (host NMS)
+    or 2 (e2e) times a batch, each reply's records equal to the offline
+    path's in the batch row it rode (``batch_row``), and every image with
+    detections there, so that no size is checked on empty lists.  Latency
+    is read from the engine's histograms (bucketed) and from the clients'
+    round trips (exact percentiles)."""
+    mode = "e2e" if e2e else "host_nms"
+    server = P.serve.make_server(engine, unix_socket=sock)
+    th = threading.Thread(target=server.serve_forever,
+                                        daemon=True)
+    try:
+        t0 = time.perf_counter()
+        compiled = P.serve.warmup(engine)
+        warm_s = time.perf_counter() - t0
+        if compiled != 2:
+            fail(f"serve [{mode}]: warmup first-dispatched {compiled} "
+                 f"programs, expected 2 (one per orientation)")
+        th.start()
+        status, ready = P.serve.unix_http_request(sock, "GET", "/readyz")
+        if status != 200:
+            fail(f"serve [{mode}]: /readyz {status} after warmup: {ready}")
+        base = dict(engine.counters)
+        hists0 = {k: h.to_dict() for k, h in engine.hists.items()}
+        spans0 = P.telemetry.get().summary()["spans"]
+        payloads = [P.serve.encode_image_payload(im) for im in images]
+        replies = [None] * SERVE_REQUESTS
+        rtt = [None] * SERVE_REQUESTS
+
+        def client(c):
+            for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                t = time.perf_counter()
+                replies[i] = P.serve.unix_http_request(
+                    sock, "POST", "/predict", payloads[i % len(images)],
+                    timeout=300)
+                rtt[i] = time.perf_counter() - t
+
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        torch.cuda.synchronize()
+        P.nms_cuda.nms_mask.launches = P.nms_cuda.nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(600)
+        wall = time.perf_counter() - t0
+        launches = {"nms_mask": P.nms_cuda.nms_mask.launches,
+                    "nms_sweep": P.nms_cuda.nms_sweep.launches}
+        statuses = [r[0] if r else None for r in replies]
+        if statuses != [200] * SERVE_REQUESTS:
+            fail(f"serve [{mode}]: statuses {statuses}")
+        status, prom = P.serve.unix_http_request(sock, "GET",
+                                                 "/metrics?format=prom")
+        if status != 200 or "mxr_serve_request_time_seconds_bucket" not in prom:
+            fail(f"serve [{mode}]: /metrics?format=prom gave {status}")
+    finally:
+        if th.is_alive():
+            server.shutdown()
+        server.server_close()
+    c = {k: engine.counters[k] - base[k] for k in (
+        "batches", "served", "h2d_transfers", "dispatches", "readbacks",
+        "readback_bytes", "recompiles")}
+    if engine.counters["recompiles"] != engine.counters["warmup_programs"] \
+            or c["recompiles"]:
+        fail(f"serve [{mode}]: {c['recompiles']} first dispatches after "
+             f"warmup")
+    n = c["batches"]
+    if not (c["h2d_transfers"] == c["dispatches"] == c["readbacks"] == n):
+        fail(f"serve [{mode}]: transfers/dispatches/readbacks {c} for {n} "
+             f"batches")
+    want = n * (2 if e2e else 1)
+    for name, count in launches.items():
+        if count != want:
+            fail(f"serve [{mode}]: {name} launched {count} times in {n} "
+                 f"batches, expected {want}")
+    offline = [offline_records(P, predictor, cfg, im, e2e) for im in images]
+    empty = [SERVE_SIZES[j] for j, rows in enumerate(offline)
+             if not all(rows)]
+    if empty:
+        fail(f"serve [{mode}]: the offline path finds no detections for "
+             f"the sizes {empty}, so their check would compare empty lists")
+    rows = [0] * BATCH
+    for i, (_, resp) in enumerate(replies):
+        row = resp.get("batch_row")
+        if row not in range(BATCH):
+            fail(f"serve [{mode}] request {i}: batch_row {row!r}")
+        rows[row] += 1
+        if not records_equal(resp["detections"],
+                             offline[i % len(images)][row]):
+            fail(f"serve [{mode}] request {i}: the served detections are "
+                 f"not the offline path's in row {row}, the row it rode")
+    latency = {f"{name.split('/')[1]}_{tag}_ms": hist_delta_ms(
+        P, h, hists0[name], q) for name, h in engine.hists.items()
+        for q, tag in ((0.5, "p50"), (0.99, "p99"))}
+    spans = P.telemetry.get().summary()["spans"]
+    phase_ms = {}
+    for name in ("serve/h2d", "serve/forward", "serve/readback",
+                 "serve/postprocess"):
+        s0 = spans0.get(name, {"count": 0, "total_s": 0.0})
+        count = spans[name]["count"] - s0["count"]
+        phase_ms[name] = (spans[name]["total_s"] - s0["total_s"]) / count \
+            * 1e3
+    rtt_ms = np.asarray(rtt) * 1e3
+    return {"mode": mode, "warmup_programs": compiled, "warmup_s": warm_s,
+            "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+            "wall_s": wall, "requests_per_s": SERVE_REQUESTS / wall,
+            **latency, "client_rtt_p50_ms": float(np.percentile(rtt_ms, 50)),
+            "client_rtt_p99_ms": float(np.percentile(rtt_ms, 99)),
+            "client_rtt_max_ms": float(rtt_ms.max()),
+            "batch_phase_mean_ms": phase_ms, "requests_per_row": rows,
+            "batches": n, "batch_fill": c["served"] / (n * BATCH),
+            "readback_bytes_per_batch": c["readback_bytes"] / n,
+            "h2d_dispatch_readback_per_batch": [
+                c["h2d_transfers"] / n, c["dispatches"] / n,
+                c["readbacks"] / n],
+            "launches": launches, "records_match_offline": True,
+            "rows_differ": [not records_equal(*o) for o in offline],
+            "detections_per_image": [len(o[0]) for o in offline]}
+
+
+def serve_driver_run(P, flags: list, work: str, device=None) -> dict:
+    """``python -m mx_rcnn_tpu_torch.serve --serve-e2e`` as a process:
+    ready on ``/readyz``, ``SERVE_CLIENTS`` requests answered 200, the
+    Prometheus text read, exit code 0 on SIGTERM.  The process is killed
+    in any case before this returns."""
+    import signal
+
+    sock = os.path.join(work, "driver.sock")
+    log_path = os.path.join(work, "driver.log")
+    argv = [sys.executable, "-m", "mx_rcnn_tpu_torch.serve", "--serve-e2e",
+            "--unix-socket", sock, "--serve-batch", str(BATCH),
+            "--max-delay-ms", "10"] + flags
+    if device is not None:
+        argv += ["--device", str(device)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(argv, cwd=os.path.dirname(
+            os.path.abspath(__file__)), stdout=out, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                break
+            try:
+                if P.serve.unix_http_request(sock, "GET", "/readyz",
+                                             timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 300:
+                break
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        if proc.poll() is None and ready_s <= 300:
+            rng = np.random.RandomState(1)
+            statuses = []
+            for hw in SERVE_SIZES[:SERVE_CLIENTS]:
+                img = rng.randint(0, 256, hw + (3,), np.uint8)
+                statuses.append(P.serve.unix_http_request(
+                    sock, "POST", "/predict",
+                    P.serve.encode_image_payload(img), timeout=300)[0])
+            status, prom = P.serve.unix_http_request(
+                sock, "GET", "/metrics?format=prom")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        else:
+            statuses, status, prom, rc = [], None, "", None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    count = f'mxr_serve_request_time_seconds_count{{rank="0"}} ' \
+            f'{2 * BATCH + len(statuses)}'
+    if rc != 0 or statuses != [200] * SERVE_CLIENTS or status != 200 or \
+            count not in prom:
+        print(tail, flush=True)
+        fail(f"serve driver: ready after {ready_s:.1f} s, statuses "
+             f"{statuses}, /metrics {status}, exit code {rc}")
+    return {"ready_s": ready_s, "statuses": statuses, "exit_code": rc,
+            "prom_lines": len(prom.splitlines())}
+
+
+def serve_slice(P, prefix: str, epoch: int, work: str, seed: int,
+                device=None, flags=EVAL_FLAGS) -> dict:
+    """The serving slice: ``serve.driver.build_engine`` on the training
+    slice's checkpoint, the in-process server in host-NMS and then e2e
+    mode (:func:`serve_mode`, one ``Predictor`` for both), then the driver
+    as a process (:func:`serve_driver_run`)."""
+    rng = np.random.RandomState(seed)
+    images = [boxes_image(rng, *hw)[0] for hw in SERVE_SIZES]
+    # an in-memory sink for the engine's per-batch phase spans
+    P.telemetry.configure(work, stream=False)
+    common = flags + ["--prefix", prefix, "--epoch", str(epoch),
+                      "--serve-batch", str(BATCH), "--max-delay-ms", "10"]
+    if device is not None:
+        common += ["--device", str(device)]
+    out = {}
+    args = P.serve_driver.parse_args(common + ["--unix-socket", "unused"])
+    cfg = P.config_from_args(args, train=False)
+    predictor, engine = P.serve_driver.build_engine(args, cfg)
+    try:
+        out["host_nms"] = serve_mode(P, predictor, engine, cfg,
+                                     os.path.join(work, "host.sock"), images,
+                                     e2e=False)
+    finally:
+        engine.stop()
+    engine = P.serve.ServeEngine(predictor, cfg, dataclasses.replace(
+        engine.opts, serve_e2e=True)).start()
+    try:
+        out["e2e"] = serve_mode(P, predictor, engine, cfg,
+                                os.path.join(work, "e2e.sock"), images,
+                                e2e=True)
+    finally:
+        engine.stop()
+    del predictor, engine
+    P.telemetry.shutdown()
+    torch.cuda.empty_cache()
+    driver = serve_driver_run(P, flags + ["--prefix", prefix, "--epoch",
+                                          str(epoch)], work, device)
+    if out["e2e"]["readback_bytes_per_batch"] >= \
+            out["host_nms"]["readback_bytes_per_batch"]:
+        fail("serve: the e2e readback is not smaller than the host-NMS one")
+    log("serve_slice", network=cfg.network.NETWORK, dtype=cfg.tpu.COMPUTE_DTYPE,
+        sizes=[list(s) for s in SERVE_SIZES], batch=BATCH, max_delay_ms=10,
+        modes=out, driver=driver)
+    return out
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
     before importing anything of the port)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mx_rcnn_tpu_torch import serve, telemetry
     from mx_rcnn_tpu_torch import test as test_driver
     from mx_rcnn_tpu_torch.config import generate_config
     from mx_rcnn_tpu_torch.data import image as image_mod
@@ -1292,6 +1621,8 @@ def import_port() -> types.SimpleNamespace:
                                            rank_rows)
     from mx_rcnn_tpu_torch.ops.postprocess import per_class_rows
     from mx_rcnn_tpu_torch.ops.proposal import propose, proposal_candidates
+    from mx_rcnn_tpu_torch.serve import driver as serve_driver
+    from mx_rcnn_tpu_torch.telemetry import HIST_LE, quantile_from_counts
     from mx_rcnn_tpu_torch.tools import reeval
     from mx_rcnn_tpu_torch.tools.common import (config_from_args,
                                                 load_eval_params)
@@ -1483,6 +1814,11 @@ def main() -> int:
         ev = eval_slice(P, prefix, epoch, work, args.seed)
         postprocess_times(P, ev, dev)
         log("eval_total", seconds=time.perf_counter() - t0)
+
+        # ---- 7. the serving slice at full width -------------------------------
+        t0 = time.perf_counter()
+        serve_slice(P, prefix, epoch, work, args.seed)
+        log("serve_total", seconds=time.perf_counter() - t0)
     log("total", seconds=time.perf_counter() - t_start)
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

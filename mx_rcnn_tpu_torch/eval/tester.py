@@ -7,8 +7,13 @@
 ``im_detect`` runs a batch and maps every image's boxes back to its
 original frame, ready for ``ops.postprocess.per_class_nms``;
 ``pred_eval`` runs a dataset through it and scores the detections.  The
-JAX package's program registry, mesh plans, int8 variants, mask pass,
-drawing and telemetry spans are not ported yet (ROADMAP.md).
+serve engine's entry points are :meth:`Predictor.put_staged` (one
+host→device copy of a staged batch), :meth:`Predictor.predict_staged`
+and :meth:`Predictor.predict_serve_e2e` (one call each per batch) and
+:meth:`Predictor.fetch` (one readback); the engine keeps the
+first-dispatch bookkeeping.  The JAX package's persistent program cache,
+mesh plans, int8 variants, mask pass, drawing and telemetry spans are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -70,15 +75,29 @@ class Predictor:
         if self.device.type == "cuda" and cfg.tpu.COMPUTE_DTYPE == "float32":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        load_jax_params(model, params)
-        if dtype == "bfloat16":
-            with torch.no_grad():
-                for t in (*model.parameters(), *model.buffers()):
-                    t.copy_(t.to(torch.bfloat16))
+        self.model = model
+        self._bind(params)
         self.model = model.to(self.device).eval()
         net = cfg.network
         self._means = self._put(np.asarray(net.PIXEL_MEANS, np.float32))
         self._stds = self._put(np.asarray(net.PIXEL_STDS, np.float32))
+
+    def _bind(self, params) -> None:
+        """Copy ``params`` into the model's tensors, where they lie, with
+        the dtype variant's rounding."""
+        load_jax_params(self.model, params)
+        if self.infer_dtype == "bfloat16":
+            with torch.no_grad():
+                for t in (*self.model.parameters(), *self.model.buffers()):
+                    t.copy_(t.to(torch.bfloat16))
+
+    def update_params(self, params) -> None:
+        """Swap the bound weights in place, the serving hot-reload
+        primitive: the same load and variant rounding as construction, into
+        the same tensors on the device, so no program key changes and no
+        first dispatch follows.  The caller makes sure that no forward is
+        in flight."""
+        self._bind(params)
 
     def batch_put(self, batch: dict) -> dict:
         """Move a batch to the device.  A staged raw batch (keys
@@ -88,14 +107,54 @@ class Predictor:
         out = dict(batch)
         images = self._put(batch["images"])
         if "raw_hw" in batch:
-            images = prep_images(
-                images, self._put(out.pop("raw_hw")),
-                self._put(out.pop("prep_ratio")),
-                self._put(batch["im_info"], torch.float32),
-                pixel_means=self._means, pixel_stds=self._stds,
-                s2d=self.cfg.network.HOST_S2D)
+            images = self.prep(images, self._put(out.pop("raw_hw")),
+                               self._put(out.pop("prep_ratio")),
+                               self._put(batch["im_info"], torch.float32))
         out["images"] = images
         return out
+
+    def prep(self, staged, raw_hw, ratio, im_info, flip=None):
+        """``data.image.prep_images`` with this predictor's pixel means,
+        stds and space-to-depth, on the tensors' device."""
+        return prep_images(staged, raw_hw, ratio, im_info,
+                           pixel_means=self._means, pixel_stds=self._stds,
+                           s2d=self.cfg.network.HOST_S2D, flip=flip)
+
+    def put_staged(self, staged, raw_hw, ratio, im_info):
+        """One host→device copy of a staged batch
+        (``data.image.stage_raw_to_bucket`` rows stacked): the uint8 pixels
+        (B, Hb, Wb, 3) and their sidecars (raw_hw (B, 2), ratio (B,),
+        im_info (B, 3), all as float32, exact for these values) are packed
+        into one pinned byte buffer, copied non-blocking, and split again
+        on the device → ``(staged uint8, raw_hw int32, ratio float32,
+        im_info float32)``."""
+        staged = np.ascontiguousarray(staged, np.uint8)
+        b = staged.shape[0]
+        side = np.concatenate([np.asarray(raw_hw, np.float32).reshape(b, 2),
+                               np.asarray(ratio, np.float32).reshape(b, 1),
+                               np.asarray(im_info, np.float32).reshape(b, 3)],
+                              axis=1)
+        npix = staged.size
+        off = -(-npix // 4) * 4          # the float32 sidecars 4-aligned
+        host = torch.empty(off + side.nbytes, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        buf[:npix] = staged.reshape(-1)
+        buf[off:] = side.reshape(-1).view(np.uint8)
+        dev = host.to(self.device, non_blocking=True)
+        side_d = dev[off:].view(torch.float32).view(b, 6)
+        return (dev[:npix].view(staged.shape), side_d[:, 0:2].to(torch.int32),
+                side_d[:, 2].contiguous(), side_d[:, 3:6].contiguous())
+
+    def fetch(self, t: torch.Tensor) -> np.ndarray:
+        """One device→host copy: ``t`` into pinned memory, non-blocking,
+        then the stream waited on; a CPU tensor comes back as it is."""
+        if t.device.type != "cuda":
+            return t.numpy()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return host.numpy()
 
     def _put(self, x, dtype=None) -> torch.Tensor:
         """``x`` on the device.  Host arrays bound for the card go through
@@ -123,9 +182,32 @@ class Predictor:
         (B, cap, 6) [x1,y1,x2,y2,score,cls], valid (B, cap))``, still on
         the device.  The forward's outputs are float32 before the box
         math, whatever the compute dtype."""
-        info = self._put(im_info, torch.float32)
+        return self._detections(self._put(images),
+                                self._put(im_info, torch.float32),
+                                max_per_image, thresh)
+
+    @torch.inference_mode()
+    def predict_staged(self, staged, raw_hw, ratio, im_info):
+        """Device prep and :meth:`predict` in one call, on the device
+        tensors of :meth:`put_staged` → ``predict``'s outputs."""
+        return self.model.predict(self.prep(staged, raw_hw, ratio, im_info),
+                                  im_info)
+
+    @torch.inference_mode()
+    def predict_serve_e2e(self, staged, raw_hw, ratio, im_info, flip,
+                          max_per_image: int, thresh: float):
+        """The single-dispatch serving call: device prep
+        (``prep_images``), the forward and the device post-process, on the
+        device tensors of :meth:`put_staged` → ``(dets (B, cap, 6),
+        valid (B, cap))``, still on the device.  ``flip`` (B,) bool or
+        None."""
+        return self._detections(self.prep(staged, raw_hw, ratio, im_info,
+                                          flip), im_info, max_per_image,
+                                thresh)
+
+    def _detections(self, images, info, max_per_image, thresh):
         rois, roi_valid, cls_prob, bbox_deltas, _ = self.model.predict(
-            self._put(images), info)
+            images, info)
         cfg = self.cfg
         return device_postprocess(
             rois.float(), roi_valid, cls_prob.float(), bbox_deltas.float(),

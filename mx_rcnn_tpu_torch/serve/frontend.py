@@ -1,0 +1,327 @@
+"""Stdlib HTTP and stdio frontends over :class:`ServeEngine` (counterpart
+of ``mx_rcnn_tpu/serve/frontend.py``).
+
+Transports, one JSON contract:
+
+* TCP HTTP (``make_server(engine, port=...)``);
+* Unix-socket HTTP (``make_server(engine, unix_socket=path)``), the same
+  handler over ``AF_UNIX``; ``unix_http_request`` is its client;
+* stdio (``run_stdio``): newline-delimited JSON over stdin/stdout.
+
+Endpoints:
+
+* ``POST /predict`` — body ``{"shape": [h, w, 3], "data": <base64 raw
+  uint8 RGB bytes>}`` (or ``"pixels"``: nested lists), optional
+  ``"deadline_ms"`` and ``"trace"``.  200 → ``{"detections": [{"cls",
+  "score", "bbox"}...], "queue_wait_ms", "batch_row"}`` (``batch_row``:
+  the request's row in the batch it rode); 503 queue full or load shed
+  (retry with backoff); 504 deadline exceeded; 400 malformed; 500 the
+  batch failed.  A client's trace id (the ``X-Mxr-Trace`` header or the
+  ``"trace"`` field) is echoed back as ``"trace"``.
+* ``GET /healthz`` — liveness: 200 while the process answers.
+* ``GET /readyz`` — readiness: 200 only once warmup is done and
+  admissions are open; 503 otherwise.
+* ``GET /metrics`` — the engine's counters, queue state, latency
+  quantiles, policy and compile snapshot as JSON; with ``Accept:
+  text/plain`` or ``?format=prom``, the Prometheus text of
+  ``telemetry/obs.py``.
+
+``POST /stream`` and ``POST /admin/reload`` answer 404, as the JAX
+frontend does when it is built without a stream manager or a reloader
+(neither is ported yet), and so does a ``?model=`` selector (no model
+pool).  Request threads (``ThreadingHTTPServer``) decode and stage images
+concurrently, which is what fills batches.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import os
+import socket
+import sys
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+
+from mx_rcnn_tpu_torch.logger import logger
+from mx_rcnn_tpu_torch.serve.engine import (DeadlineExceededError,
+                                            RejectedError, ServeEngine)
+from mx_rcnn_tpu_torch.telemetry.obs import PROM_CONTENT_TYPE, serve_prometheus
+from mx_rcnn_tpu_torch.telemetry.tracectx import TRACE_HEADER
+
+# result-wait ceiling for one HTTP request; the engine's own deadline fires
+# long before it, the ceiling only bounds a wedged dispatcher
+WAIT_TIMEOUT_S = 600.0
+
+
+def decode_image_payload(doc: dict) -> np.ndarray:
+    """Request JSON → (H, W, 3) uint8 RGB array.  Raises ValueError on a
+    malformed payload (the handler's 400)."""
+    if "pixels" in doc:
+        img = np.asarray(doc["pixels"], np.uint8)
+    elif "data" in doc:
+        shape = doc.get("shape")
+        if (not isinstance(shape, (list, tuple)) or len(shape) != 3
+                or shape[2] != 3):
+            raise ValueError(f"'shape' must be [h, w, 3], got {shape!r}")
+        raw = base64.b64decode(doc["data"], validate=True)
+        h, w, c = (int(x) for x in shape)
+        if len(raw) != h * w * c:
+            raise ValueError(f"'data' holds {len(raw)} bytes, shape "
+                             f"{shape} needs {h * w * c}")
+        img = np.frombuffer(raw, np.uint8).reshape(h, w, c)
+    else:
+        raise ValueError("payload needs 'data'+'shape' (base64 raw RGB "
+                         "bytes) or 'pixels' (nested lists)")
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3), got {img.shape}")
+    return img
+
+
+def encode_image_payload(img: np.ndarray) -> dict:
+    """The client half of the contract."""
+    img = np.ascontiguousarray(img, np.uint8)
+    return {"shape": list(img.shape),
+            "data": base64.b64encode(img.tobytes()).decode("ascii")}
+
+
+def _predict_doc(engine: ServeEngine, doc: dict, img) -> tuple:
+    """Submit + wait for one predict request → (status, response doc)."""
+    try:
+        fut = engine.submit(img, deadline_ms=doc.get("deadline_ms"))
+        dets = fut.result(timeout=WAIT_TIMEOUT_S)
+    except RejectedError as e:
+        return 503, {"error": str(e)}
+    except (DeadlineExceededError, TimeoutError) as e:
+        return 504, {"error": str(e)}
+    except Exception as e:  # noqa: BLE001 — surface as a 500, keep serving
+        logger.exception("predict failed")
+        return 500, {"error": f"{type(e).__name__}: {e}"}
+    qms = (fut.queue_wait_s or 0.0) * 1e3
+    return 200, {"detections": dets, "queue_wait_ms": round(qms, 3),
+                 "batch_row": fut.batch_row}
+
+
+def handle_request_doc(engine: ServeEngine, doc: dict,
+                       trace_header: Optional[str] = None) -> tuple:
+    """One predict request → (http_status, response_doc), shared by every
+    transport.
+
+    A trace id sent in the ``X-Mxr-Trace`` header or the ``"trace"`` doc
+    field is echoed back as ``"trace"`` (the JAX frontend's answer with
+    tracing off; no spans are recorded)."""
+    try:
+        img = decode_image_payload(doc)
+    except (ValueError, TypeError, KeyError) as e:
+        return 400, {"error": str(e)}
+    raw = trace_header or doc.get("trace")
+    status, resp = _predict_doc(engine, doc, img)
+    if raw:
+        resp["trace"] = str(raw).split("-", 1)[0]
+    return status, resp
+
+
+def query_model(query: str) -> Optional[str]:
+    """``model=...`` from a raw query string (None if absent)."""
+    for part in query.split("&"):
+        k, _, v = part.partition("=")
+        if k == "model" and v:
+            return v
+    return None
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    engine: ServeEngine = None  # set by make_server subclassing
+
+    def log_message(self, fmt, *args):  # route through the logger
+        logger.debug("serve http: " + fmt, *args)
+
+    def address_string(self):  # AF_UNIX peers have no (host, port)
+        if isinstance(self.client_address, (bytes, str)):
+            return "unix"
+        return super().address_string()
+
+    def _reply(self, status: int, doc: dict):
+        self._reply_raw(status, json.dumps(doc).encode(),
+                        "application/json")
+
+    def _reply_raw(self, status: int, body: bytes, ctype: str):
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        path, _, query = self.path.partition("?")
+        if path == "/healthz":
+            self._reply(200, {"status": "ok",
+                              "queue_depth": self.engine.queue_depth()})
+        elif path == "/readyz":
+            doc = self.engine.readiness()
+            self._reply(200 if doc["ready"] else 503, doc)
+        elif path == "/metrics":
+            accept = self.headers.get("Accept", "")
+            if "format=prom" in query or "text/plain" in accept:
+                self._reply_raw(200, serve_prometheus(self.engine).encode(),
+                                PROM_CONTENT_TYPE)
+            else:
+                self._reply(200, self.engine.metrics())
+        else:
+            self._reply(404, {"error": f"no route {self.path}"})
+
+    def do_POST(self):
+        path, _, query = self.path.partition("?")
+        if path == "/stream":
+            self._reply(404, {"error": "streaming not enabled "
+                                       "(not ported yet)"})
+            return
+        if path != "/predict":
+            # /admin/reload included: no reloader
+            self._reply(404, {"error": f"no route {self.path}"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            doc = json.loads(self.rfile.read(length) or b"{}")
+        except (ValueError, json.JSONDecodeError) as e:
+            self._reply(400, {"error": f"bad JSON body: {e}"})
+            return
+        mid = query_model(query) if query else None
+        if mid is None and isinstance(doc.get("model"), str) and doc["model"]:
+            mid = doc["model"]
+        if mid is not None:
+            self._reply(404, {"error": f"model routing not enabled "
+                                       f"(requested {mid!r})"})
+            return
+        self._reply(*handle_request_doc(
+            self.engine, doc, trace_header=self.headers.get(TRACE_HEADER)))
+
+
+class _TCPHTTPServer(ThreadingHTTPServer):
+    # the stdlib backlog (5) drops connections under the very bursts the
+    # engine's backpressure answers with 503s
+    request_queue_size = 128
+
+
+class _UnixHTTPServer(_TCPHTTPServer):
+    address_family = socket.AF_UNIX
+
+    def server_bind(self):
+        # a stale socket file from a killed process blocks bind
+        if os.path.exists(self.server_address):
+            os.unlink(self.server_address)
+        super().server_bind()
+
+    def client_address_string(self):
+        return "unix"
+
+
+def make_server(engine: ServeEngine, port: Optional[int] = None,
+                host: str = "127.0.0.1",
+                unix_socket: Optional[str] = None):
+    """Build (not start) the HTTP server on exactly one of ``port`` /
+    ``unix_socket``.  The caller owns ``serve_forever``/``shutdown``."""
+    if (port is None) == (unix_socket is None):
+        raise ValueError("pass exactly one of port / unix_socket")
+
+    class Handler(_Handler):
+        pass
+
+    Handler.engine = engine
+    if unix_socket is not None:
+        return _UnixHTTPServer(unix_socket, Handler)
+    return _TCPHTTPServer((host, port), Handler)
+
+
+def _http_raw(conn, method: str, path: str, body: Optional[bytes],
+              headers: Optional[dict]) -> tuple:
+    try:
+        hdrs = dict(headers or {})
+        if body:
+            hdrs.setdefault("Content-Type", "application/json")
+        conn.request(method, path, body=body, headers=hdrs)
+        resp = conn.getresponse()
+        return (resp.status, resp.read(),
+                resp.getheader("Content-Type") or "")
+    finally:
+        conn.close()
+
+
+def _as_doc(status: int, raw: bytes, ctype: str) -> tuple:
+    if "json" in ctype:
+        return status, json.loads(raw)
+    return status, raw.decode()
+
+
+def unix_http_request_raw(sock_path: str, method: str, path: str,
+                          body: Optional[bytes] = None,
+                          timeout: float = 60.0,
+                          headers: Optional[dict] = None) -> tuple:
+    """Byte-level HTTP over a Unix socket → (status, body_bytes, ctype).
+    Raises ``OSError`` on transport failure."""
+    import http.client
+
+    class Conn(http.client.HTTPConnection):
+        def __init__(self):
+            super().__init__("localhost", timeout=timeout)
+
+        def connect(self):
+            self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            self.sock.settimeout(timeout)
+            self.sock.connect(sock_path)
+
+    return _http_raw(Conn(), method, path, body, headers)
+
+
+def unix_http_request(sock_path: str, method: str, path: str,
+                      doc: Optional[dict] = None, timeout: float = 60.0,
+                      headers: Optional[dict] = None) -> tuple:
+    """HTTP over a Unix socket → (status, response_doc): JSON responses
+    parsed, anything else (the Prometheus text) as str."""
+    body = json.dumps(doc).encode() if doc is not None else None
+    return _as_doc(*unix_http_request_raw(sock_path, method, path, body=body,
+                                          timeout=timeout, headers=headers))
+
+
+def tcp_http_request_raw(host: str, port: int, method: str, path: str,
+                         body: Optional[bytes] = None,
+                         timeout: float = 60.0,
+                         headers: Optional[dict] = None) -> tuple:
+    """Byte-level HTTP over TCP → (status, body_bytes, ctype)."""
+    import http.client
+
+    return _http_raw(http.client.HTTPConnection(host, port, timeout=timeout),
+                     method, path, body, headers)
+
+
+def tcp_http_request(host: str, port: int, method: str, path: str,
+                     doc: Optional[dict] = None, timeout: float = 60.0,
+                     headers: Optional[dict] = None) -> tuple:
+    """HTTP over TCP → (status, response_doc), as
+    :func:`unix_http_request`."""
+    body = json.dumps(doc).encode() if doc is not None else None
+    return _as_doc(*tcp_http_request_raw(host, port, method, path, body=body,
+                                         timeout=timeout, headers=headers))
+
+
+def run_stdio(engine: ServeEngine, inp=None, out=None):
+    """Newline-delimited JSON over stdin/stdout: each input line a predict
+    payload, each output line ``{"status": N, ...response}``.  Returns on
+    EOF."""
+    inp = inp if inp is not None else sys.stdin
+    out = out if out is not None else sys.stdout
+    for line in inp:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            doc = json.loads(line)
+        except json.JSONDecodeError as e:
+            status, resp = 400, {"error": f"bad JSON line: {e}"}
+        else:
+            status, resp = handle_request_doc(engine, doc)
+        out.write(json.dumps({"status": status, **resp}) + "\n")
+        out.flush()

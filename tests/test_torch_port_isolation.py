@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports without JAX and without the
 JAX package, no file of it names ``jax``, ``flax``, ``cv2`` or
 ``mx_rcnn_tpu``, PIL is imported only inside ``get_image``'s JPEG branch,
-and its entry points (``Predictor``, ``fit``, ``train_end2end``, ``test``)
-never fall back to the CPU when asked for the card.  Plus the one test that
+and its entry points (``Predictor``, ``fit``, ``train_end2end``, ``test``,
+``serve``) never fall back to the CPU when asked for the card.  Plus the one test that
 needs the card (``cuda`` marker): the NMS kernels against their plain versions, and
 a chain cut inside a 64-row block.
 """
@@ -39,7 +39,11 @@ def test_imports_with_jax_and_the_jax_package_blocked():
     for mod in ("kernels.nms_cuda", "kernels.assign_cuda", "ops.assign_anchor",
                 "ops.sample_rois", "data.loader", "train.trainer",
                 "train_end2end", "data.pascal_voc", "eval.voc_eval",
-                "eval.pipeline", "tools.common", "tools.reeval", "test"):
+                "eval.pipeline", "tools.common", "tools.reeval", "test",
+                "telemetry", "telemetry.sink", "telemetry.tracectx",
+                "telemetry.obs", "compile", "compile.registry", "serve",
+                "serve.engine", "serve.warmup", "serve.frontend",
+                "serve.controller", "serve.driver", "serve.__main__"):
         assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -129,6 +133,25 @@ def test_test_driver_without_a_card_raises(monkeypatch, tmp_path):
             test_driver.test_rcnn(test_driver.parse_args(
                 ["--synthetic", "--device", "cpu"] + flags))
     assert not list(tmp_path.iterdir())
+
+
+def test_serve_driver_without_a_card_raises(monkeypatch, tmp_path):
+    """``python -m mx_rcnn_tpu_torch.serve`` without ``--device`` needs the
+    card: it raises before building anything or binding its socket; the
+    flags of the serving modes not ported are not accepted."""
+    from mx_rcnn_tpu_torch.serve import driver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sock = tmp_path / "s.sock"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.main(driver.parse_args(["--synthetic", "--unix-socket",
+                                       str(sock)]))
+    assert not sock.exists()
+    for flag in ("--replicas", "--fabric", "--join", "--models", "--cascade",
+                 "--stream", "--watch-checkpoints", "--capture-dir",
+                 "--trace", "--watch"):
+        with pytest.raises(SystemExit):
+            driver.parse_args(["--synthetic", flag, "1"])
 
 
 @pytest.mark.cuda
