@@ -91,7 +91,27 @@ Phases, each printing its own lines:
    mx_rcnn_tpu_torch.serve --serve-e2e`` as a process: ready on
    ``/readyz``, four requests answered, ``/metrics?format=prom`` read,
    exit code 0 on SIGTERM.
-8. One ``{"kernels": [...]}`` JSON line, then the last line
+8. The alternate-training slice at full width: ``python -m
+   mx_rcnn_tpu_torch.train_alternate``'s ``alternate_train`` with the
+   training slice's checkpoint as ``--pretrained`` (ResNet-101, 600×1000,
+   TRAIN config, ``ASSIGN_FUSED=True``, ``FLIP=True``, bf16 compute on
+   float32 parameters), ``SyntheticDataset`` of ``TRAIN_IMAGES`` images (8
+   records), ``BATCH`` images a step, ``ALT_STEPS`` steps a training
+   stage.  The driver's stage functions are wrapped so that every kernel
+   count is set to 0 just before each stage and read just after it, and
+   each stage is timed, model build included: the assign pair once a step
+   in stages 1 and 4,
+   the NMS pair once a record in stages 2 and 5, no kernel in stages 3 and
+   6.  Each stage starts from the weights the JAX driver gives it, its
+   losses are finite, its frozen leaves stay bitwise and its trainable
+   ones move; every record gets at most ``TEST.RPN_POST_NMS_TOP_N``
+   proposals inside its image, its batch's RoIs in score order; on stage
+   5's first batch the kernels' kept rows equal ``nms_padded``'s on the
+   same RPN outputs, and the pair is timed there (batch 1, 6000 → 300)
+   beside its plain version and bound; the combined checkpoint holds stage
+   4's backbone and RPN and stage 6's head bitwise, and a ``Predictor`` on
+   it detects, the NMS pair once a batch.
+9. One ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
@@ -180,6 +200,12 @@ SERVE_SIZES = ((375, 500), (500, 375), (600, 1000), (1000, 600), (480, 640),
                (1200, 1600))
 SERVE_REQUESTS = 240
 SERVE_CLIENTS = 4
+# the alternate-training slice: the training slice's network, TRAIN config
+# and fused assign on the synthetic dataset (TRAIN_IMAGES images, flipped),
+# BATCH images a step, ALT_STEPS steps in each of its four training stages
+ALT_FLAGS = ["--network", "resnet101", "--dataset", "PascalVOC",
+             "--cfg", "tpu__ASSIGN_FUSED=True"]
+ALT_STEPS = 2
 
 
 def log(phase: str, **kw) -> None:
@@ -1598,6 +1624,308 @@ def serve_slice(P, prefix: str, epoch: int, work: str, seed: int,
         modes=out, driver=driver)
     return out
 
+# ---- the alternate-training slice ---------------------------------------------
+
+def _moved_and_frozen(before: dict, after: dict, mask: dict, what: str):
+    """Fail unless every frozen leaf is bitwise unchanged and every
+    trainable leaf that was not 0 moved (a 0 leaf has nothing to decay,
+    and only a gradient moves it); returns (frozen, moved) counts."""
+    frozen = {k for k, t in mask.items() if not t}
+    moved = {k for k in mask if not np.array_equal(after[k], before[k])}
+    if moved & frozen:
+        fail(f"{what}: {len(moved & frozen)} frozen leaves moved, e.g. "
+             f"{sorted(moved & frozen)[:3]}")
+    still = {k for k, t in mask.items() if t and before[k].any()} - moved
+    if still:
+        fail(f"{what}: {len(still)} trainable leaves did not move, e.g. "
+             f"{sorted(still)[:3]}")
+    return len(frozen), len(moved)
+
+
+def alternate_slice(P, pretrained: str, work: str, seed: int,
+                    device=None, flags=ALT_FLAGS) -> dict:
+    """``train_alternate.alternate_train`` from the training slice's
+    weights.  Its stage functions are wrapped to set the kernel counts to
+    0 just before each stage and read them just after, to time it (model
+    build included) and to keep its weights; the stage tools' ``fit`` and
+    ``generate_proposals`` to keep the step metrics and the RPN outputs.
+    Then the checks of each stage, the kernels' kept rows against the
+    plain NMS on one proposal batch's RPN outputs, the combined checkpoint
+    by group and a ``Predictor`` on it."""
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep,
+                "assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+    stages = []
+
+    def sync():
+        if device is None:
+            torch.cuda.synchronize()
+
+    def start():
+        sync()
+        for f in counters.values():
+            f.launches = 0
+        return time.perf_counter()
+
+    def finish(t0, **kw):
+        sync()
+        kw.update(wall_s=time.perf_counter() - t0,
+                  launches={k: f.launches for k, f in counters.items()})
+        stages.append(kw)
+
+    pending = {}
+
+    def fit_wrapper(fit):
+        # the step metrics and the frozen prefixes of the stage's fit
+        def wrapped(cfg, model, params, loader, **kw):
+            pending["metrics"] = []
+            kw["batch_end_callback"] = \
+                lambda e, i, m: pending["metrics"].append(m)
+            pending["fixed"] = kw["fixed_prefixes"]
+            return fit(cfg, model, params, loader, **kw)
+        return wrapped
+
+    def proposals_wrapper(gen):
+        # each batch's RPN outputs, and the first batch's network input
+        def wrapped(predictor, loader, roidb, cache_path=None):
+            outs, first = [], []
+            predict_rpn = predictor.predict_rpn
+
+            def recorded(images, im_info):
+                if not first:
+                    first.append((images, im_info))
+                out = predict_rpn(images, im_info)
+                outs.append([t.float().cpu().numpy() for t in out]
+                            + [np.asarray(im_info)])
+                return out
+
+            predictor.predict_rpn = recorded
+            pending.update(outs=outs, first=first, predictor=predictor)
+            return gen(predictor, loader, roidb, cache_path)
+        return wrapped
+
+    def stage_wrapper(stage, graph):
+        # one stage as the driver calls it, model build included: the
+        # counts set to 0 just before it and read just after
+        def wrapped(*a, **kw):
+            before = {k: np.array(v) for k, v in kw["params"].items()}
+            pending.clear()
+            t0 = start()
+            out = stage(*a, **kw)
+            finish(t0, graph=graph, **pending)
+            if graph == "proposals":
+                stages[-1].update(records=len(out), first=pending["first"][0],
+                                  proposals=[r["proposals"] for r in out])
+            else:
+                stages[-1].update(before=before, mask=out.mask,
+                                  steps=out.step,
+                                  after=P.export_jax_params(out.model))
+            return out
+        return wrapped
+
+    saved = {}
+    mods = ((P.train_rpn_mod, "fit", fit_wrapper(P.train_rpn_mod.fit)),
+            (P.train_rcnn_mod, "fit", fit_wrapper(P.train_rcnn_mod.fit)),
+            (P.test_rpn_mod, "generate_proposals",
+             proposals_wrapper(P.test_rpn_mod.generate_proposals)),
+            (P.train_alternate, "train_rpn",
+             stage_wrapper(P.train_alternate.train_rpn, "rpn")),
+            (P.train_alternate, "test_rpn",
+             stage_wrapper(P.train_alternate.test_rpn, "proposals")),
+            (P.train_alternate, "train_rcnn",
+             stage_wrapper(P.train_alternate.train_rcnn, "rcnn")))
+    for mod, name, wrapped in mods:
+        saved[mod, name] = getattr(mod, name)
+        setattr(mod, name, wrapped)
+    prefix = os.path.join(work, "alt", "alt")
+    argv = flags + ["--synthetic", "--synthetic_images", str(TRAIN_IMAGES),
+                    "--batch_images", str(BATCH), "--num-steps",
+                    str(ALT_STEPS), "--end_epoch", "1", "--frequent", "1",
+                    "--seed", str(seed), "--pretrained", pretrained,
+                    "--prefix", prefix]
+    if device is not None:
+        argv += ["--device", str(device)]
+    here = os.getcwd()
+    # the synthetic imdb caches its proposals under ./data/cache
+    os.makedirs(os.path.join(work, "alt"), exist_ok=True)
+    os.chdir(os.path.join(work, "alt"))
+    t_all = time.perf_counter()
+    try:
+        args = P.train_alternate.parse_args(argv)
+        final = P.train_alternate.alternate_train(args)
+    finally:
+        os.chdir(here)
+        for (mod, name), f in saved.items():
+            setattr(mod, name, f)
+    total_s = time.perf_counter() - t_all
+    cfg = P.config_from_args(args, train=True)
+
+    names = ["train_rpn", "test_rpn", "train_rcnn", "train_rpn_shared",
+             "test_rpn_shared", "train_rcnn_shared"]
+    if [s["graph"] for s in stages] != ["rpn", "proposals", "rcnn", "rpn",
+                                        "proposals", "rcnn"]:
+        fail(f"alternate stages ran as {[s['graph'] for s in stages]}")
+    net = cfg.network
+    want_fixed = [net.FIXED_PARAMS, None, net.FIXED_PARAMS,
+                  net.FIXED_PARAMS_SHARED, None, net.FIXED_PARAMS_SHARED]
+    starts = [None, None, stages[0]["before"], stages[2]["after"], None,
+              stages[3]["after"]]
+    summary = []
+    for i, (st, name) in enumerate(zip(stages, names)):
+        row = {"stage": name, "wall_s": st["wall_s"],
+               "launches": st["launches"]}
+        la = st["launches"]
+        if st["graph"] == "proposals":
+            n = st["records"]
+            want = {"nms_mask": n, "nms_sweep": n, "assign_gtmax": 0,
+                    "assign_rows": 0}
+            row.update(records=n, proposals=[len(p) for p in
+                                             st["proposals"]])
+            check_proposals(P, cfg, st, name)
+        else:
+            if st["fixed"] != want_fixed[i]:
+                fail(f"{name}: frozen prefixes {st['fixed']}")
+            if starts[i] is not None and any(
+                    not np.array_equal(st["before"][k], v)
+                    for k, v in starts[i].items()):
+                fail(f"{name} did not start from the weights the JAX "
+                     f"driver gives it")
+            n = st["steps"]
+            if n != ALT_STEPS or len(st["metrics"]) != n:
+                fail(f"{name}: {n} steps, {len(st['metrics'])} fetched")
+            for m in st["metrics"]:
+                if not all(np.isfinite(v) for v in m.values()):
+                    fail(f"{name}: non-finite metrics {m}")
+            k = n if st["graph"] == "rpn" else 0
+            want = {"nms_mask": 0, "nms_sweep": 0, "assign_gtmax": k,
+                    "assign_rows": k}
+            frozen, moved = _moved_and_frozen(st["before"], st["after"],
+                                              st["mask"], name)
+            row.update(steps=n, frozen_leaves=frozen, moved_leaves=moved,
+                       total_loss=[m["total_loss"] for m in st["metrics"]])
+        if la != want:
+            fail(f"{name}: kernel launches {la}, expected {want}")
+        summary.append(row)
+
+    # the kernels' kept rows against the plain NMS on one batch's RPN
+    # outputs (stage 5's first record), outside every counted window
+    st = stages[4]
+    kept, boxes, valid = check_kept_rows(P, cfg, st["predictor"],
+                                         *st["first"])
+    for st in stages:
+        st.pop("predictor", None)
+    te = cfg.TEST
+    times = time_kernels(P.nms_cuda, boxes, valid, te.RPN_POST_NMS_TOP_N,
+                         te.RPN_NMS_THRESH)
+    for k in times:
+        if k["max_abs_err"] != 0.0:
+            fail(f"{k['name']} disagrees with its plain version at the "
+                 f"proposal stage's shape (max abs err {k['max_abs_err']})")
+    del boxes, valid
+
+    # the combined checkpoint: stage 4's backbone and RPN, stage 6's head
+    path = P.epoch_path(prefix, 1)
+    ckpt = P.load_params_npz(path)
+    s4, s6 = stages[3]["after"], stages[5]["after"]
+    head = P.denormalize_for_save(s6, cfg)
+    if ckpt.keys() != s4.keys():
+        fail("the combined checkpoint lacks keys")
+    for k, v in ckpt.items():
+        ref = head[k] if k.startswith(("head_body/", "rcnn_out/")) else s4[k]
+        if not np.array_equal(v, ref):
+            fail(f"combined checkpoint: {k} differs from its stage")
+        src = s6 if k.startswith(("head_body/", "rcnn_out/")) else s4
+        if not np.array_equal(final[k], src[k]):
+            fail(f"combine_model: {k} differs from its stage")
+    served = P.tester.Predictor(P.build_model(cfg), path, cfg, device=device)
+    scale = cfg.tpu.SCALES[0]
+    ds = P.SyntheticDataset(num_images=TRAIN_IMAGES,
+                            num_classes=cfg.NUM_CLASSES, height=scale[0],
+                            width=scale[1])
+    images = [r["image_array"] for r in ds.gt_roidb()[:BATCH]]
+    P.nms_cuda.nms_mask.launches = P.nms_cuda.nms_sweep.launches = 0
+    records, walls = run_slice((P.image_mod, P.tester, P.post), served, cfg,
+                               images, BATCH)
+    served_launches = {"nms_mask": P.nms_cuda.nms_mask.launches,
+                       "nms_sweep": P.nms_cuda.nms_sweep.launches}
+    if set(served_launches.values()) != {len(walls)}:
+        fail(f"combined Predictor: NMS launches {served_launches} in "
+             f"{len(walls)} batches")
+    del served
+    log("alternate_slice", network=net.NETWORK, dtype=cfg.tpu.COMPUTE_DTYPE,
+        assign_fused=cfg.tpu.ASSIGN_FUSED, flip=cfg.TRAIN.FLIP,
+        records=stages[1]["records"], batch=BATCH, steps_per_stage=ALT_STEPS,
+        stages=summary, kept_rows_equal_plain=kept, total_s=total_s,
+        proposal_shape={"B": int(len(kept)), "n": te.RPN_PRE_NMS_TOP_N,
+                        "max_out": te.RPN_POST_NMS_TOP_N}, kernels=times,
+        served={"records_per_image": [len(r) for r in records],
+                "batch_wall_s": walls, "launches": served_launches})
+    return {"stages": summary, "total_s": total_s}
+
+
+def check_proposals(P, cfg, st, name) -> None:
+    """Every record: at most ``TEST.RPN_POST_NMS_TOP_N`` proposals inside
+    its image, equal to its batch's valid RoIs in the original frame in
+    descending score order, whose scores are sorted."""
+    cap = cfg.TEST.RPN_POST_NMS_TOP_N
+    for i, (props, (rois, scores, valid, info)) in enumerate(
+            zip(st["proposals"], st["outs"], strict=True)):
+        v = valid[0] > 0
+        info = info[0]
+        s = scores[0][v]
+        if not 0 < len(props) <= cap or len(props) != int(v.sum()):
+            fail(f"{name}: record {i} has {len(props)} proposals")
+        if np.any(np.diff(s) > 0):
+            fail(f"{name}: record {i}'s proposals are not score-sorted")
+        want = (rois[0][v] / info[2])[np.argsort(-s)]
+        if not np.array_equal(props, want.astype(np.float32)):
+            fail(f"{name}: record {i}'s proposals differ from its RoIs")
+        h, w = info[0] / info[2], info[1] / info[2]
+        if (props.min() < 0 or (props[:, 2] > w).any()
+                or (props[:, 3] > h).any()
+                or (props[:, 2] < props[:, 0]).any()
+                or (props[:, 3] < props[:, 1]).any()):
+            fail(f"{name}: record {i} has proposals outside its image")
+
+
+def check_kept_rows(P, cfg, predictor, images, im_info):
+    """The RPN of ``predictor`` on one batch, then ``propose``'s NMS input:
+    the kernels' kept indices against ``nms_padded`` on the same boxes,
+    and ``propose`` through the kernels against its plain route.  Returns
+    the kept counts and the NMS input (boxes, valid)."""
+    te = cfg.TEST
+    m = predictor.model
+    with torch.inference_mode():
+        feat = m.backbone(images)
+        cls, bbox = m.rpn(feat)
+        anchors = m._anchors_for(feat.shape[1], feat.shape[2], feat.device)
+        info = torch.as_tensor(im_info, device=feat.device,
+                               dtype=torch.float32)
+        rpn = (P.fg_prob(cls), bbox, anchors, info)
+        boxes, scores, valid = P.proposal_candidates(
+            *rpn, pre_nms_top_n=te.RPN_PRE_NMS_TOP_N,
+            min_size=te.RPN_MIN_SIZE)
+        ki, km = P.nms_cuda.nms_bitmask(boxes, valid, te.RPN_POST_NMS_TOP_N,
+                                        te.RPN_NMS_THRESH)
+        kept = []
+        for b in range(boxes.shape[0]):
+            ri, rm = P.nms_padded(boxes[b], scores[b], te.RPN_POST_NMS_TOP_N,
+                                  te.RPN_NMS_THRESH, valid=valid[b])
+            if not torch.equal(ki[b][km[b]], ri[rm]):
+                fail(f"alternate proposals: kernel and plain NMS keep "
+                     f"different rows in image {b}")
+            kept.append(int(km[b].sum()))
+        kw = dict(pre_nms_top_n=te.RPN_PRE_NMS_TOP_N,
+                  post_nms_top_n=te.RPN_POST_NMS_TOP_N,
+                  nms_thresh=te.RPN_NMS_THRESH, min_size=te.RPN_MIN_SIZE)
+        k_rois, _, k_valid = P.propose(*rpn, use_kernel=True, **kw)
+        p_rois, _, p_valid = P.propose(*rpn, use_kernel=False, **kw)
+    if not (torch.equal(k_valid, p_valid) and torch.equal(k_rois, p_rois)):
+        fail("alternate proposals: kernel and plain propose differ")
+    return kept, boxes, valid
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -1605,6 +1933,7 @@ def import_port() -> types.SimpleNamespace:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mx_rcnn_tpu_torch import serve, telemetry
     from mx_rcnn_tpu_torch import test as test_driver
+    from mx_rcnn_tpu_torch import train_alternate
     from mx_rcnn_tpu_torch.config import generate_config
     from mx_rcnn_tpu_torch.data import image as image_mod
     from mx_rcnn_tpu_torch.data.loader import AnchorLoader, TestLoader
@@ -1624,10 +1953,15 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.serve import driver as serve_driver
     from mx_rcnn_tpu_torch.telemetry import HIST_LE, quantile_from_counts
     from mx_rcnn_tpu_torch.tools import reeval
+    from mx_rcnn_tpu_torch.tools import test_rpn as test_rpn_mod
+    from mx_rcnn_tpu_torch.tools import train_rcnn as train_rcnn_mod
+    from mx_rcnn_tpu_torch.tools import train_rpn as train_rpn_mod
     from mx_rcnn_tpu_torch.tools.common import (config_from_args,
                                                 load_eval_params)
     from mx_rcnn_tpu_torch.train.checkpoint import (denormalize_for_save,
-                                                    epoch_path, save_params_npz)
+                                                    epoch_path,
+                                                    load_params_npz,
+                                                    save_params_npz)
     from mx_rcnn_tpu_torch.train.train_step import make_train_step
     from mx_rcnn_tpu_torch.train.trainer import batch_put, fit
     from mx_rcnn_tpu_torch.utils.convert_jax import (export_jax_params,
@@ -1819,6 +2153,10 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_slice(P, prefix, epoch, work, args.seed)
         log("serve_total", seconds=time.perf_counter() - t0)
+
+        # ---- 8. the alternate-training slice at full width --------------------
+        torch.cuda.empty_cache()
+        alternate_slice(P, P.epoch_path(prefix, epoch), work, args.seed)
     log("total", seconds=time.perf_counter() - t_start)
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -12,7 +12,10 @@ plus ``append_flipped_images`` (x-mirror the boxes, mark flipped — the
 pixels are mirrored when the batch is prepped), ``filter_roidb`` and the
 pickle cache (``root_path/cache/{name}_{tag}.pkl``, the JAX package's file
 names and plain numpy/dict contents, so either package reads the other's
-cache).  External proposals are not ported.
+cache).  A record may carry ``proposals`` (P, 4) float32 in its original
+frame (``utils/load_data.py:load_proposals``, or
+``eval/tester.py:generate_proposals``): :meth:`IMDB.sanitize_proposals`
+clips them into the image once, and a flipped copy mirrors them.
 """
 
 from __future__ import annotations
@@ -67,9 +70,27 @@ class IMDB:
         logger.info("%s wrote %s cache to %s", self.name, tag, cache_file)
         return data
 
+    @staticmethod
+    def sanitize_proposals(boxes, width: int, height: int) -> np.ndarray:
+        """External proposals clipped into the image, with each degenerate
+        row (x2 < x1 or y2 < y1) repaired to zero extent: done once where
+        they are attached, so a record and its flipped copy hold the same
+        geometry.  → (P, 4) float32."""
+        boxes = np.asarray(boxes, dtype=np.float32)
+        if len(boxes) == 0:
+            return boxes.reshape(0, 4)
+        boxes = boxes.copy()
+        boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, width - 1)
+        boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, height - 1)
+        boxes[:, 2] = np.maximum(boxes[:, 0], boxes[:, 2])
+        boxes[:, 3] = np.maximum(boxes[:, 1], boxes[:, 3])
+        return boxes
+
     def append_flipped_images(self, roidb: list) -> list:
         """Double the roidb with x-flipped records: boxes mirrored on the
-        image width (``x → w − x − 1``), ``flipped`` set."""
+        image width (``x → w − x − 1``), ``flipped`` set.  A record with
+        ``proposals`` gets them sanitized in place and mirrored in its
+        copy (attach, then flip)."""
 
         def mirror(boxes, w):
             boxes = boxes.copy()
@@ -84,7 +105,14 @@ class IMDB:
             boxes = mirror(rec["boxes"], rec["width"])
             if not (boxes[:, 2] >= boxes[:, 0]).all():
                 raise ValueError(f"degenerate gt boxes in {rec['image']}")
-            flipped.append(dict(rec, boxes=boxes, flipped=True))
+            new = dict(rec, boxes=boxes, flipped=True)
+            if "proposals" in rec:
+                props = self.sanitize_proposals(rec["proposals"],
+                                                rec["width"], rec["height"])
+                rec["proposals"] = props
+                new["proposals"] = (mirror(props, rec["width"]) if len(props)
+                                    else props)
+            flipped.append(new)
         logger.info("%s appended %d flipped images", self.name, len(flipped))
         return list(roidb) + flipped
 

@@ -1,5 +1,5 @@
-"""The loaders (counterparts of ``mx_rcnn_tpu/data/loader.py:AnchorLoader``
-and ``TestLoader`` on their device-prep route; reference
+"""The loaders (counterparts of ``mx_rcnn_tpu/data/loader.py:AnchorLoader``,
+``ROIIter`` and ``TestLoader`` on their device-prep route; reference
 ``rcnn/core/loader.py``).
 
 Anchor targets are assigned on the card, inside the train step, so a
@@ -15,7 +15,9 @@ loaders plan the same epochs.  Records without inline pixels (``image_array``)
 are read from their file by ``data/image.py:get_image``, unflipped: the
 card mirrors them.
 
-``TestLoader`` walks the roidb in order, one scale, and pads the last
+``ROIIter`` is ``AnchorLoader``'s plan with each record's cached
+proposals beside it (alternate training, stages 3 and 6).  ``TestLoader``
+walks the roidb in order, one scale, and pads the last
 batch with repeats of its last image (``indices``, ``batch_valid``).
 
 Not ported: the host cv2 path, the worker pool, the prefetch thread (a
@@ -31,6 +33,7 @@ import numpy as np
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.data.image import get_image, stage_raw_to_bucket
+from mx_rcnn_tpu_torch.logger import logger
 
 
 def _load_record(rec: dict, cfg: Config, scale: Tuple[int, int]) -> dict:
@@ -122,6 +125,49 @@ class AnchorLoader:
         for chunk, scale in self._epoch_plan():
             yield _stack([_load_record(self.roidb[int(i)], self.cfg, scale)
                           for i in chunk])
+
+
+class ROIIter(AnchorLoader):
+    """Fast R-CNN training loader over cached proposals: ``AnchorLoader``'s
+    epochs (the same plan from the same seed), each sample with ``rois``
+    (``TRAIN.RPN_POST_NMS_TOP_N``, 4), the record's ``proposals`` scaled by
+    its ``im_info[2]`` into the resized frame, padded or cut to the cap,
+    and ``roi_valid`` marking the real rows.  The first rows are kept
+    where a record has more than the cap: right for score-sorted RPN
+    caches, so a warning names how many records lose rows."""
+
+    def __init__(self, roidb: list, cfg: Config, batch_size: int,
+                 shuffle: bool = True, seed: int = 0):
+        super().__init__(roidb, cfg, batch_size, shuffle, seed)
+        cap = cfg.TRAIN.RPN_POST_NMS_TOP_N
+        over = sum(len(r.get("proposals", ())) > cap for r in roidb)
+        if over:
+            logger.warning(
+                "%d/%d images carry more than TRAIN.RPN_POST_NMS_TOP_N=%d "
+                "proposals; ROIIter keeps the FIRST %d rows — fine for "
+                "score-sorted RPN caches, lossy for unranked sources like "
+                "selective search (raise the cap if the tail matters)",
+                over, len(roidb), cap, cap)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        p_max = self.cfg.TRAIN.RPN_POST_NMS_TOP_N
+        for chunk, scale in self._epoch_plan():
+            samples = []
+            for i in chunk:
+                rec = self.roidb[int(i)]
+                s = _load_record(rec, self.cfg, scale)
+                props = np.asarray(rec.get("proposals", np.zeros((0, 4))),
+                                   np.float32)
+                rois = np.zeros((p_max, 4), np.float32)
+                valid = np.zeros((p_max,), bool)
+                n = min(len(props), p_max)
+                if n:
+                    rois[:n] = props[:n] * s["im_info"][2]
+                    valid[:n] = True
+                s["rois"] = rois
+                s["roi_valid"] = valid
+                samples.append(s)
+            yield _stack(samples)
 
 
 class TestLoader:

@@ -1,7 +1,7 @@
 """Inference and evaluation driver (counterpart of
 ``mx_rcnn_tpu/eval/tester.py``: ``Predictor``, ``predict``,
 ``predict_detections``, ``im_detect``, ``_im_detect_device``,
-``_Progress``, ``pred_eval``).
+``_Progress``, ``pred_eval``, ``generate_proposals``).
 
 ``Predictor`` binds converted weights to a model on one device;
 ``im_detect`` runs a batch and maps every image's boxes back to its
@@ -103,13 +103,16 @@ class Predictor:
         """Move a batch to the device.  A staged raw batch (keys
         ``raw_hw``/``prep_ratio`` beside uint8 ``images``, from
         ``data.image.stage_raw_to_bucket``) is prepped on the device into
-        the network input; ``im_info`` and host keys stay numpy."""
+        the network input, mirrored where its ``flip`` (B,) is set;
+        ``im_info`` and host keys stay numpy."""
         out = dict(batch)
         images = self._put(batch["images"])
         if "raw_hw" in batch:
+            flip = out.pop("flip", None)
             images = self.prep(images, self._put(out.pop("raw_hw")),
                                self._put(out.pop("prep_ratio")),
-                               self._put(batch["im_info"], torch.float32))
+                               self._put(batch["im_info"], torch.float32),
+                               None if flip is None else self._put(flip))
         out["images"] = images
         return out
 
@@ -172,6 +175,14 @@ class Predictor:
         cls_prob, bbox_deltas, roi_scores)``, tensors on the device."""
         return self.model.predict(self._put(images),
                                   self._put(im_info, torch.float32))
+
+    @torch.inference_mode()
+    def predict_rpn(self, images, im_info):
+        """``FasterRCNN.predict_rpn`` on the device → ``(rois (B, P, 4),
+        roi_scores (B, P), roi_valid (B, P))`` in the scaled image frame,
+        tensors on the device."""
+        return self.model.predict_rpn(self._put(images),
+                                      self._put(im_info, torch.float32))
 
     @torch.inference_mode()
     def predict_detections(self, images, im_info, max_per_image: int,
@@ -242,6 +253,37 @@ def _im_detect_device(predictor: Predictor, batch: dict, max_per_image: int,
     n = int(np.sum(batch.get("batch_valid", np.ones(len(dets), bool))))
     return [device_dets_to_per_class(dets[b], dvalid[b], num_classes)
             for b in range(n)]
+
+
+def generate_proposals(predictor: Predictor, test_loader, roidb: list,
+                       cache_path: Optional[str] = None) -> list:
+    """The RPN over ``test_loader`` (a ``TestLoader`` over ``roidb``): each
+    valid batch row's kept proposals, in the original image frame (``rois
+    / im_info[2]``), score-descending, float32, into ``roidb[i]
+    ["proposals"]`` (alternate training, stages 2 and 5).  One readback a
+    batch.  With ``cache_path``, the list of every record's proposals is
+    pickled there (``tools/train_rcnn.py --proposals`` reads it back)."""
+    for batch in test_loader:
+        batch = predictor.batch_put(batch)
+        rois, scores, valid = predictor.predict_rpn(batch["images"],
+                                                    batch["im_info"])
+        packed = predictor.fetch(torch.cat(
+            [rois.float(), scores.float()[..., None],
+             valid.float()[..., None]], dim=-1))
+        im_info = np.asarray(batch["im_info"])
+        n = int(np.sum(batch["batch_valid"]))
+        for b in range(n):
+            i = int(batch["indices"][b])
+            v = packed[b, :, 5] > 0
+            props = packed[b, v, :4] / im_info[b, 2]
+            order = np.argsort(-packed[b, v, 4])
+            roidb[i]["proposals"] = props[order].astype(np.float32)
+    if cache_path:
+        with open(cache_path, "wb") as f:
+            pickle.dump([r.get("proposals") for r in roidb], f,
+                        pickle.HIGHEST_PROTOCOL)
+        logger.info("wrote proposals to %s", cache_path)
+    return roidb
 
 
 class _Progress:

@@ -11,8 +11,10 @@ body and RPN → batched ``assign_anchor`` (the fused assign kernels when
 ``cfg.tpu.ASSIGN_FUSED``) → ``propose`` on the detached RPN outputs with
 the TRAIN settings → gt appended → ``sample_rois`` → the R-CNN head on the
 sampled RoIs → the four losses.  Labels, targets and proposals carry no
-gradient; everything else is autograd.  Classic ResNet only; VGG, FPN and
-Mask wait for later slices, as do ``rpn_train``/``rcnn_train``.
+gradient; everything else is autograd.  ``rpn_train`` and ``rcnn_train``
+are the alternate-training graphs: the RPN half with its losses, and the
+R-CNN half on given proposals.  Classic ResNet only; VGG, FPN and Mask
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -96,6 +98,65 @@ class FasterRCNN(nn.Module):
                            mode=self.cfg.tpu.ROI_MODE)
         return self.rcnn_out(self.head_body(pooled))
 
+    def _assign(self, anchors, gt_boxes, gt_valid, im_info, draws,
+                generator):
+        """``assign_anchor`` with the TRAIN settings (no gradient)."""
+        tr = self.cfg.TRAIN
+        with torch.no_grad():
+            return assign_anchor(
+                anchors, gt_boxes, gt_valid, im_info,
+                batch_size=tr.RPN_BATCH_SIZE, fg_fraction=tr.RPN_FG_FRACTION,
+                pos_overlap=tr.RPN_POSITIVE_OVERLAP,
+                neg_overlap=tr.RPN_NEGATIVE_OVERLAP,
+                allowed_border=tr.RPN_ALLOWED_BORDER,
+                clobber_positives=tr.RPN_CLOBBER_POSITIVES,
+                iou_bf16=tr.RPN_ASSIGN_IOU_BF16,
+                fused=self.cfg.tpu.ASSIGN_FUSED, draws=draws,
+                generator=generator)
+
+    def _sample(self, rois, roi_valid, gt_boxes, gt_classes, gt_valid, draws,
+                generator):
+        """ProposalTarget (no gradient): the gt appended to ``rois``, then
+        ``sample_rois`` with the TRAIN settings."""
+        cfg = self.cfg
+        tr = cfg.TRAIN
+        with torch.no_grad():
+            return sample_rois(
+                torch.cat([rois, gt_boxes], dim=1),
+                torch.cat([roi_valid, gt_valid], dim=1),
+                gt_boxes, gt_classes, gt_valid,
+                num_classes=cfg.NUM_CLASSES, batch_rois=tr.BATCH_ROIS,
+                fg_fraction=tr.FG_FRACTION, fg_thresh=tr.FG_THRESH,
+                bg_thresh_hi=tr.BG_THRESH_HI, bg_thresh_lo=tr.BG_THRESH_LO,
+                bbox_means=tr.BBOX_MEANS, bbox_stds=tr.BBOX_STDS,
+                draws=draws, generator=generator)
+
+    def _rpn_losses(self, rpn_cls, rpn_bbox, assign, b: int) -> dict:
+        tr = self.cfg.TRAIN
+        return {
+            "rpn_cls_loss": L.softmax_ce_ignore(rpn_cls, assign["label"]),
+            "rpn_bbox_loss": L.smooth_l1(rpn_bbox, assign["bbox_target"],
+                                         assign["bbox_weight"], sigma=3.0,
+                                         norm=float(tr.RPN_BATCH_SIZE) * b),
+            "rpn_label": assign["label"],
+            "rpn_pred": torch.argmax(rpn_cls.detach(), dim=-1),
+        }
+
+    def _rcnn_losses(self, feat, tgt, b: int) -> dict:
+        """The R-CNN head on the sampled RoIs and its two losses."""
+        tr = self.cfg.TRAIN
+        cls_logits, bbox_out = self._rcnn_head(feat, tgt["rois"])
+        return {
+            "rcnn_cls_loss": L.softmax_ce_weighted(cls_logits, tgt["label"],
+                                                   tgt["label_weight"]),
+            "rcnn_bbox_loss": L.smooth_l1(bbox_out, tgt["bbox_target"],
+                                          tgt["bbox_weight"], sigma=1.0,
+                                          norm=float(tr.BATCH_ROIS) * b),
+            "rcnn_label": tgt["label"],
+            "rcnn_pred": torch.argmax(cls_logits.detach(), dim=-1),
+            "rcnn_label_weight": tgt["label_weight"],
+        }
+
     def forward(self, images, im_info, gt_boxes, gt_classes, gt_valid, *,
                 draws: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None):
@@ -113,8 +174,7 @@ class FasterRCNN(nn.Module):
         Returns ``(total_loss, aux)`` with the JAX package's keys: the four
         losses and the raw pieces of the six reference metrics.
         """
-        cfg = self.cfg
-        tr = cfg.TRAIN
+        tr = self.cfg.TRAIN
         b = images.shape[0]
         draws = draws or {}
         im_info = im_info.to(torch.float32)
@@ -122,17 +182,9 @@ class FasterRCNN(nn.Module):
         feat = self.backbone(images)
         anchors = self._anchors_for(feat.shape[1], feat.shape[2], feat.device)
         rpn_cls, rpn_bbox = self.rpn(feat)                 # (B, N, 2), (B, N, 4)
-
+        assign = self._assign(anchors, gt_boxes, gt_valid, im_info,
+                              draws.get("rpn"), generator)
         with torch.no_grad():
-            assign = assign_anchor(
-                anchors, gt_boxes, gt_valid, im_info,
-                batch_size=tr.RPN_BATCH_SIZE, fg_fraction=tr.RPN_FG_FRACTION,
-                pos_overlap=tr.RPN_POSITIVE_OVERLAP,
-                neg_overlap=tr.RPN_NEGATIVE_OVERLAP,
-                allowed_border=tr.RPN_ALLOWED_BORDER,
-                clobber_positives=tr.RPN_CLOBBER_POSITIVES,
-                iou_bf16=tr.RPN_ASSIGN_IOU_BF16, fused=cfg.tpu.ASSIGN_FUSED,
-                draws=draws.get("rpn"), generator=generator)
             # the Proposal op: non-differentiable by contract
             rois, _, roi_valid = propose(
                 fg_prob(rpn_cls), rpn_bbox, anchors, im_info,
@@ -140,42 +192,48 @@ class FasterRCNN(nn.Module):
                 post_nms_top_n=tr.RPN_POST_NMS_TOP_N,
                 nms_thresh=tr.RPN_NMS_THRESH, min_size=tr.RPN_MIN_SIZE,
                 use_kernel=tr.CXX_PROPOSAL)
-            # ProposalTarget: append gt, sample BATCH_ROIS RoIs with targets
-            tgt = sample_rois(
-                torch.cat([rois, gt_boxes], dim=1),
-                torch.cat([roi_valid, gt_valid], dim=1),
-                gt_boxes, gt_classes, gt_valid,
-                num_classes=cfg.NUM_CLASSES, batch_rois=tr.BATCH_ROIS,
-                fg_fraction=tr.FG_FRACTION, fg_thresh=tr.FG_THRESH,
-                bg_thresh_hi=tr.BG_THRESH_HI, bg_thresh_lo=tr.BG_THRESH_LO,
-                bbox_means=tr.BBOX_MEANS, bbox_stds=tr.BBOX_STDS,
-                draws=draws.get("rcnn"), generator=generator)
-
-        cls_logits, bbox_out = self._rcnn_head(feat, tgt["rois"])
-
-        rpn_cls_loss = L.softmax_ce_ignore(rpn_cls, assign["label"])
-        rpn_bbox_loss = L.smooth_l1(rpn_bbox, assign["bbox_target"],
-                                    assign["bbox_weight"], sigma=3.0,
-                                    norm=float(tr.RPN_BATCH_SIZE) * b)
-        rcnn_cls_loss = L.softmax_ce_weighted(cls_logits, tgt["label"],
-                                              tgt["label_weight"])
-        rcnn_bbox_loss = L.smooth_l1(bbox_out, tgt["bbox_target"],
-                                     tgt["bbox_weight"], sigma=1.0,
-                                     norm=float(tr.BATCH_ROIS) * b)
-        total = rpn_cls_loss + rpn_bbox_loss + rcnn_cls_loss + rcnn_bbox_loss
-        aux = {
-            "rpn_cls_loss": rpn_cls_loss,
-            "rpn_bbox_loss": rpn_bbox_loss,
-            "rcnn_cls_loss": rcnn_cls_loss,
-            "rcnn_bbox_loss": rcnn_bbox_loss,
-            # raw pieces of the six reference metrics (train/metric.py)
-            "rpn_label": assign["label"],
-            "rpn_pred": torch.argmax(rpn_cls.detach(), dim=-1),
-            "rcnn_label": tgt["label"],
-            "rcnn_pred": torch.argmax(cls_logits.detach(), dim=-1),
-            "rcnn_label_weight": tgt["label_weight"],
-        }
+        tgt = self._sample(rois, roi_valid, gt_boxes, gt_classes, gt_valid,
+                           draws.get("rcnn"), generator)
+        aux = {**self._rpn_losses(rpn_cls, rpn_bbox, assign, b),
+               **self._rcnn_losses(feat, tgt, b)}
+        total = (aux["rpn_cls_loss"] + aux["rpn_bbox_loss"]
+                 + aux["rcnn_cls_loss"] + aux["rcnn_bbox_loss"])
         return total, aux
+
+    def rpn_train(self, images, im_info, gt_boxes, gt_valid, *,
+                  draws: Optional[dict] = None,
+                  generator: Optional[torch.Generator] = None):
+        """The RPN-only training graph (alternate training, stages 1 and
+        4): body → RPN head → ``assign_anchor`` → the two RPN losses.
+        ``draws``: optional ``{"rpn": (fg, bg)}``, each (B, N).  Returns
+        ``(total_loss, aux)`` with the RPN keys of :meth:`forward`."""
+        b = images.shape[0]
+        im_info = im_info.to(torch.float32)
+        feat = self.backbone(images)
+        anchors = self._anchors_for(feat.shape[1], feat.shape[2], feat.device)
+        rpn_cls, rpn_bbox = self.rpn(feat)
+        assign = self._assign(anchors, gt_boxes, gt_valid, im_info,
+                              (draws or {}).get("rpn"), generator)
+        aux = self._rpn_losses(rpn_cls, rpn_bbox, assign, b)
+        return aux["rpn_cls_loss"] + aux["rpn_bbox_loss"], aux
+
+    def rcnn_train(self, images, im_info, rois, roi_valid, gt_boxes,
+                   gt_classes, gt_valid, *, draws: Optional[dict] = None,
+                   generator: Optional[torch.Generator] = None):
+        """The Fast R-CNN training graph on given proposals (alternate
+        training, stages 3 and 6): body → the gt appended to ``rois`` (B, P,
+        4, scaled frame) → ``sample_rois`` → the R-CNN head → its two
+        losses.  ``draws``: optional ``{"rcnn": (fg, bg)}``, each (B, P +
+        G).  Returns ``(total_loss, aux)`` with the R-CNN keys of
+        :meth:`forward`."""
+        del im_info  # the RoIs arrive in the scaled frame
+        b = images.shape[0]
+        feat = self.backbone(images)
+        tgt = self._sample(rois.to(torch.float32), roi_valid, gt_boxes,
+                           gt_classes, gt_valid, (draws or {}).get("rcnn"),
+                           generator)
+        aux = self._rcnn_losses(feat, tgt, b)
+        return aux["rcnn_cls_loss"] + aux["rcnn_bbox_loss"], aux
 
     def predict(self, images, im_info):
         """Inference forward: NHWC images (B, H, W, 3|12), im_info (B, 3) →

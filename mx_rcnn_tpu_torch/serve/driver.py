@@ -43,7 +43,7 @@ from mx_rcnn_tpu_torch.utils.convert_jax import random_params
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="Serve a Faster R-CNN network over HTTP (PyTorch port)")
-    add_common_args(parser)
+    add_common_args(parser, train=False)
     parser.add_argument("--prefix", default="model/e2e",
                         help="checkpoint prefix: {prefix}-{epoch:04d}.npz")
     parser.add_argument("--epoch", type=int, default=10,

@@ -32,7 +32,7 @@ NOT_PORTED = {"vis": "--vis", "calibrate_shard": "--calibrate-shard",
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Test a Faster R-CNN "
                                      "network (PyTorch port)")
-    add_common_args(parser)
+    add_common_args(parser, train=False)
     parser.add_argument("--prefix", default="model/e2e",
                         help="checkpoint prefix: {prefix}-{epoch:04d}.npz")
     parser.add_argument("--epoch", type=int, default=10,

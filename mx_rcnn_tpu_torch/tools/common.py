@@ -1,11 +1,15 @@
 """Shared driver plumbing (counterpart of ``mx_rcnn_tpu/tools/common.py``:
-``parse_cfg_overrides``, ``config_from_args``, ``get_imdb``,
-``get_train_roidb``, ``load_eval_params``).
+``add_common_args``, ``parse_cfg_overrides``, ``config_from_args``,
+``get_imdb``, ``get_train_roidb``, ``init_or_load_params``,
+``CappedLoader``, ``load_eval_params``).
 
 The dataset factory covers PASCAL VOC and the synthetic dataset; COCO
 raises until its reader is ported.  Checkpoints are the port's flat
 ``{prefix}-{epoch:04d}.npz`` (``train/checkpoint.py``), de-normalized, as
-``train_end2end`` writes them.
+``train_end2end`` writes them.  Not ported among the training flags:
+``--resume``, ``--dist-*``, ``--obs-port``, ``--steps-per-dispatch``,
+``--tuned-pipeline``, ``--replay-*``, ``--prefetch`` and ``--device-prep``
+(ROADMAP.md A.4, A.5.2–A.5.4, A.10).
 """
 
 from __future__ import annotations
@@ -13,16 +17,23 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
+import os
+
+import numpy as np
 
 from mx_rcnn_tpu_torch.config import (Config, generate_config, list_datasets,
                                       list_networks)
 from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+from mx_rcnn_tpu_torch.logger import logger
 from mx_rcnn_tpu_torch.train.checkpoint import epoch_path, load_params_npz
+from mx_rcnn_tpu_torch.utils.convert_jax import Params, random_params
 
 
-def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The flags every driver of the port shares (the JAX drivers' names)."""
+def add_common_args(parser: argparse.ArgumentParser,
+                    train: bool = True) -> argparse.ArgumentParser:
+    """The flags every driver of the port shares (the JAX drivers' names),
+    and with ``train`` those of the training drivers."""
     parser.add_argument("--network", default="resnet101",
                         choices=list_networks())
     parser.add_argument("--dataset", default="PascalVOC",
@@ -41,6 +52,37 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="config override, repeatable: double-underscore "
                              "paths with python-literal values (e.g. --cfg "
                              "tpu__SCALES='((128,192),)')")
+    if not train:
+        return parser
+    parser.add_argument("--prefix", default="model/e2e",
+                        help="checkpoint prefix: {prefix}-{epoch:04d}.npz")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the card; raises "
+                             "without one)")
+    parser.add_argument("--pretrained", default="",
+                        help="flat .npz of initial weights (either "
+                             "package's layout): each leaf whose key and "
+                             "shape match replaces the seeded random one")
+    parser.add_argument("--pretrained_epoch", type=int, default=0,
+                        help="accepted for the reference's command lines; "
+                             "unused")
+    parser.add_argument("--begin_epoch", type=int, default=0)
+    parser.add_argument("--end_epoch", type=int, default=10)
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--lr_step", default=None,
+                        help="comma-separated epochs, e.g. '7'")
+    parser.add_argument("--frequent", type=int, default=20,
+                        help="fetch and log the metrics every N steps")
+    parser.add_argument("--no_flip", action="store_true")
+    parser.add_argument("--no_shuffle", action="store_true")
+    parser.add_argument("--batch_images", type=int, default=None,
+                        help="images per step (default "
+                             "TRAIN.BATCH_IMAGES)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="weights and sampling seed; the loader "
+                             "shuffles with its own")
+    parser.add_argument("--num-steps", type=int, default=0, dest="num_steps",
+                        help="cap steps per epoch (smoke runs)")
     return parser
 
 
@@ -56,12 +98,23 @@ def parse_cfg_overrides(items) -> dict:
 
 
 def config_from_args(args, train: bool = True) -> Config:
-    """generate_config + ``--cfg`` overrides; ``--image_set`` lands on
-    IMAGE_SET for training and TEST_IMAGE_SET for evaluation;
+    """generate_config + ``--cfg`` overrides, and for training ``--lr``,
+    ``--lr_step``, ``--no_flip`` and ``--no_shuffle``; ``--image_set``
+    lands on IMAGE_SET for training and TEST_IMAGE_SET for evaluation;
     ``--synthetic`` sets ``PIXEL_STDS=127`` (random weights cannot absorb
     the raw 0..255 pixel scale)."""
-    cfg = generate_config(args.network, args.dataset,
-                          **parse_cfg_overrides(args.cfg))
+    overrides = parse_cfg_overrides(args.cfg)
+    if train:
+        if args.lr is not None:
+            overrides["TRAIN__LR"] = args.lr
+        if args.lr_step is not None:
+            overrides["TRAIN__LR_STEP"] = tuple(
+                int(e) for e in str(args.lr_step).split(","))
+        if args.no_flip:
+            overrides["TRAIN__FLIP"] = False
+        if args.no_shuffle:
+            overrides["TRAIN__SHUFFLE"] = False
+    cfg = generate_config(args.network, args.dataset, **overrides)
     if getattr(args, "image_set", None):
         field = "IMAGE_SET" if train else "TEST_IMAGE_SET"
         cfg = cfg.replace(dataset=dataclasses.replace(
@@ -101,6 +154,60 @@ def get_train_roidb(imdb, cfg: Config, roidb=None) -> list:
     if cfg.TRAIN.FLIP:
         roidb = imdb.append_flipped_images(roidb)
     return imdb.filter_roidb(roidb)
+
+
+def init_or_load_params(args, model) -> Params:
+    """Seeded random weights for ``model`` (``random_params`` with
+    ``args.seed``), then each leaf of ``--pretrained`` whose key and shape
+    match (:func:`_overlay`).  The file's weights are taken as they are,
+    not re-normalised.  Raises ``FileNotFoundError`` for a missing
+    file."""
+    params = random_params(model, seed=args.seed)
+    path = args.pretrained
+    if path:
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        params = _overlay(params, load_params_npz(path))
+        logger.info("loaded pretrained params from %s", path)
+    return params
+
+
+def _overlay(params: Params, loaded: Params) -> Params:
+    """``params`` with each leaf of ``loaded`` whose key and shape match;
+    a key of a different shape keeps its initial leaf, with a warning, and
+    keys the model does not have are ignored."""
+    out = {}
+    for k, v in params.items():
+        if k in loaded and np.shape(loaded[k]) == np.shape(v):
+            out[k] = np.asarray(loaded[k])
+        else:
+            if k in loaded:
+                logger.warning("shape mismatch at %s: %s vs %s — kept init",
+                               k, np.shape(loaded[k]), np.shape(v))
+            out[k] = v
+    return out
+
+
+class CappedLoader:
+    """At most ``n`` batches per epoch of the wrapped loader."""
+
+    def __init__(self, inner, n: int):
+        self._inner = inner
+        self._n = n
+        self.batch_size = inner.batch_size
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return min(self._n, self._inner.steps_per_epoch)
+
+    def __iter__(self):
+        for _, batch in zip(range(self.steps_per_epoch), self._inner):
+            yield batch
+
+
+def cap_steps(loader, args):
+    """``loader`` capped at ``--num-steps`` batches an epoch when set."""
+    return CappedLoader(loader, args.num_steps) if args.num_steps else loader
 
 
 def load_eval_params(args) -> dict:

@@ -32,7 +32,7 @@ def reeval(args) -> dict:
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Re-evaluate cached "
                                      "detections (PyTorch port)")
-    add_common_args(parser)
+    add_common_args(parser, train=False)
     parser.add_argument("--detections", required=True,
                         help="pickled all_boxes path")
     return parser.parse_args(argv)

@@ -15,6 +15,7 @@ checkpoints and resume are not ported.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Sequence
 
 import numpy as np
@@ -56,7 +57,10 @@ def epoch_path(prefix: str, epoch: int) -> str:
 
 
 def save_params_npz(path: str, params: Params) -> None:
-    """The flat ``.npz`` (the JAX package's deployment artifact)."""
+    """The flat ``.npz`` (the JAX package's deployment artifact), its
+    directory made when missing."""
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez(path, **{k: np.asarray(v) for k, v in params.items()})
 
 

@@ -14,12 +14,14 @@ that chain, update for update.
 
 Frozen leaves are the JAX package's, decided on the same flat names
 (``utils/convert_jax.py:jax_names``): they get ``requires_grad=False`` and
-never reach the optimizer.
+never reach the optimizer.  Every other leaf is decayed and carries its
+momentum on every step, also where the step's graph does not reach it
+(``train/train_step.py`` gives it a zero gradient), as optax's chain does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -74,19 +76,22 @@ def apply_param_mask(model: nn.Module,
     return mask
 
 
-def make_lr_schedule(cfg: Config,
-                     steps_per_epoch: int) -> Callable[[int], float]:
+def make_lr_schedule(cfg: Config, steps_per_epoch: int,
+                     begin_epoch: int = 0) -> Callable[[int], float]:
     """MultiFactorScheduler(step=LR_STEP epochs, factor=LR_FACTOR) with the
     optional linear warmup, as optax's ``piecewise_constant_schedule``
     joined after ``linear_schedule``: the factor applies from the boundary
-    step on."""
+    step on.  The step count starts at 0 in ``begin_epoch``: a drop at
+    epoch ``e`` lands on step ``(e − begin_epoch) · steps_per_epoch``, and
+    the drops at or before ``begin_epoch`` are not applied."""
     tr = cfg.TRAIN
     warmup = tr.WARMUP_STEP if (tr.WARMUP and tr.WARMUP_STEP > 0) else 0
     # MultiFactor drops land on GLOBAL steps; the warmup shifts the
     # constant schedule's clock like optax.join_schedules (a set: the JAX
     # package keys its boundaries in a dict)
-    boundaries = sorted({e * steps_per_epoch - warmup for e in tr.LR_STEP
-                         if e * steps_per_epoch > 0})
+    boundaries = sorted({(e - begin_epoch) * steps_per_epoch - warmup
+                         for e in tr.LR_STEP
+                         if (e - begin_epoch) * steps_per_epoch > 0})
 
     def constant(count: int) -> float:
         lr = tr.LR
@@ -111,18 +116,22 @@ def clip_gradient(params: Iterable[torch.Tensor], clip: float) -> None:
             p.grad.clamp_(-clip, clip)
 
 
-def make_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int):
+def make_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int,
+                   begin_epoch: int = 0,
+                   fixed_prefixes: Optional[Sequence[str]] = None):
     """-> ``(optimizer, schedule, mask)``: SGD over the parameters that
-    ``cfg.network.FIXED_PARAMS`` leaves trainable (the others get
-    ``requires_grad=False``), the LR schedule by step, and the trainable
-    mask over the JAX keys."""
+    ``fixed_prefixes`` (default ``cfg.network.FIXED_PARAMS``) leaves
+    trainable (the others get ``requires_grad=False``), the LR schedule by
+    step from ``begin_epoch``, and the trainable mask over the JAX keys."""
     tr = cfg.TRAIN
     if tr.OPT_ACC_DTYPE != "float32":
         raise NotImplementedError(
             f"OPT_ACC_DTYPE={tr.OPT_ACC_DTYPE!r}: the port keeps the "
             f"momentum in float32 only")
-    mask = apply_param_mask(model, cfg.network.FIXED_PARAMS)
-    schedule = make_lr_schedule(cfg, steps_per_epoch)
+    if fixed_prefixes is None:
+        fixed_prefixes = cfg.network.FIXED_PARAMS
+    mask = apply_param_mask(model, fixed_prefixes)
+    schedule = make_lr_schedule(cfg, steps_per_epoch, begin_epoch)
     params = [p for p in model.parameters() if p.requires_grad]
     opt = torch.optim.SGD(params, lr=schedule(0), momentum=tr.MOMENTUM,
                           weight_decay=tr.WD)

@@ -13,7 +13,7 @@ profiling, ``steps_per_dispatch`` and mesh plans.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,7 +34,7 @@ from mx_rcnn_tpu_torch.utils.convert_jax import (export_jax_params,
 
 def batch_put(batch: Dict[str, np.ndarray], cfg: Config,
               device: torch.device) -> Dict[str, torch.Tensor]:
-    """An ``AnchorLoader`` batch → device tensors, the staged raw pixels
+    """An ``AnchorLoader`` or ``ROIIter`` batch → device tensors, the staged raw pixels
     resampled, mirrored where ``flip``, normalised and regrouped on the
     device (the JAX package's ``DevicePrep.put``)."""
     t = {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
@@ -46,19 +46,24 @@ def batch_put(batch: Dict[str, np.ndarray], cfg: Config,
     return t
 
 
-def fit(cfg: Config, model, params, train_loader, *, end_epoch: int = 10,
-        prefix: Optional[str] = None, seed: int = 0, frequent: int = 20,
-        device=None,
+def fit(cfg: Config, model, params, train_loader, *, begin_epoch: int = 0,
+        end_epoch: int = 10, prefix: Optional[str] = None,
+        graph: str = "end2end", seed: int = 0, frequent: int = 20,
+        device=None, fixed_prefixes: Optional[Sequence[str]] = None,
         batch_end_callback: Optional[Callable[[int, int, dict], None]] = None
         ) -> TrainState:
     """Train ``model`` from ``params`` (flat JAX layout, the training
-    parametrisation) for ``end_epoch`` epochs of ``train_loader`` on
-    ``device`` (the card unless given ``"cpu"``).
+    parametrisation) over epochs ``begin_epoch`` … ``end_epoch − 1`` of
+    ``train_loader`` on ``device`` (the card unless given ``"cpu"``),
+    through the ``graph`` (``"end2end"``, ``"rpn"`` or ``"rcnn"``,
+    ``train/train_step.py``) with the leaves of ``fixed_prefixes``
+    (default ``cfg.network.FIXED_PARAMS``) frozen.  The LR schedule counts
+    its steps from ``begin_epoch``.
 
     Metrics are fetched from the device every ``frequent`` steps and at
     the end of an epoch (a fetch synchronises with the card);
     ``batch_end_callback(epoch, step, metrics)`` sees each fetched dict.
-    With ``prefix``, every epoch ends with ``{prefix}-{epoch:04d}.npz``.
+    With ``prefix``, epoch ``e`` ends with ``{prefix}-{e + 1:04d}.npz``.
     The sampling uniforms come from one ``torch.Generator`` seeded with
     ``seed`` on the device.
     """
@@ -70,8 +75,10 @@ def fit(cfg: Config, model, params, train_loader, *, end_epoch: int = 10,
     load_jax_params(model, params)
     model.to(device)
     steps_per_epoch = train_loader.steps_per_epoch
-    state = create_train_state(cfg, model, steps_per_epoch)
-    step_fn = make_train_step(cfg)
+    state = create_train_state(cfg, model, steps_per_epoch,
+                               begin_epoch=begin_epoch,
+                               fixed_prefixes=fixed_prefixes)
+    step_fn = make_train_step(cfg, graph)
     generator = torch.Generator(device=device).manual_seed(seed)
     speedo = Speedometer(train_loader.batch_size, frequent=frequent)
     bank = MetricBank()
@@ -82,7 +89,7 @@ def fit(cfg: Config, model, params, train_loader, *, end_epoch: int = 10,
         if batch_end_callback is not None:
             batch_end_callback(epoch, cur, fetched)
 
-    for epoch in range(end_epoch):
+    for epoch in range(begin_epoch, end_epoch):
         bank.reset()
         speedo.reset()
         ep_t0 = time.perf_counter()

@@ -79,7 +79,9 @@ def _to_jax(attr: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().to("cpu", torch.float32).numpy()
     if attr in ("kernel", "weight"):
         a = a.transpose(OIHW_TO_HWIO) if a.ndim == 4 else a.T
-    return np.ascontiguousarray(a)
+    # np.array copies: on the CPU ``a`` may be a view of the model's own
+    # tensor, which later training would change under the export
+    return np.array(a, order="C")
 
 
 def _from_jax(attr: str, a: np.ndarray) -> torch.Tensor:
@@ -132,7 +134,7 @@ def load_jax_params(model: nn.Module, params: Union[Params, str, os.PathLike]) -
 def export_jax_params(model: nn.Module) -> Params:
     """The model's weights in the flat JAX layout: float32 numpy arrays
     under the ``save_params_npz`` keys (the inverse of
-    :func:`load_jax_params`)."""
+    :func:`load_jax_params`), each owning its memory on every device."""
     return {key: _to_jax(attr, t) for key, attr, t in _tensors(model)}
 
 

@@ -2,7 +2,8 @@
 JAX package, no file of it names ``jax``, ``flax``, ``cv2`` or
 ``mx_rcnn_tpu``, PIL is imported only inside ``get_image``'s JPEG branch,
 and its entry points (``Predictor``, ``fit``, ``train_end2end``, ``test``,
-``serve``) never fall back to the CPU when asked for the card.  Plus the one test that
+``serve``, ``train_alternate`` and its stage tools) never fall back to the
+CPU when asked for the card.  Plus the one test that
 needs the card (``cuda`` marker): the NMS kernels against their plain versions, and
 a chain cut inside a 64-row block.
 """
@@ -43,7 +44,10 @@ def test_imports_with_jax_and_the_jax_package_blocked():
                 "telemetry", "telemetry.sink", "telemetry.tracectx",
                 "telemetry.obs", "compile", "compile.registry", "serve",
                 "serve.engine", "serve.warmup", "serve.frontend",
-                "serve.controller", "serve.driver", "serve.__main__"):
+                "serve.controller", "serve.driver", "serve.__main__",
+                "train_alternate", "tools.train_rpn", "tools.test_rpn",
+                "tools.train_rcnn", "utils.combine_model",
+                "utils.load_data"):
         assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -110,6 +114,25 @@ def test_train_end2end_without_a_card_raises(monkeypatch, tmp_path):
         train_end2end.train_net(args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fit(None, None, {}, None)
+    assert not list(tmp_path.iterdir())
+
+
+def test_alternate_training_without_a_card_raises(monkeypatch, tmp_path):
+    """``python -m mx_rcnn_tpu_torch.train_alternate`` and its three stage
+    tools without ``--device`` need the card: they raise before writing
+    anything."""
+    from mx_rcnn_tpu_torch import train_alternate
+    from mx_rcnn_tpu_torch.tools import test_rpn, train_rcnn, train_rpn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--synthetic", "--prefix", str(tmp_path / "alt"), "--root_path",
+            str(tmp_path / "data")]
+    for mod, run in ((train_alternate, train_alternate.alternate_train),
+                     (train_rpn, train_rpn.train_rpn),
+                     (train_rcnn, train_rcnn.train_rcnn),
+                     (test_rpn, test_rpn.test_rpn)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(mod.parse_args(argv))
     assert not list(tmp_path.iterdir())
 
 
