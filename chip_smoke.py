@@ -111,7 +111,32 @@ Phases, each printing its own lines:
    beside its plain version and bound; the combined checkpoint holds stage
    4's backbone and RPN and stage 6's head bitwise, and a ``Predictor`` on
    it detects, the NMS pair once a batch.
-9. One ``{"kernels": [...]}`` JSON line, then the last line
+9. The host input pipeline at full width (the training slice's network,
+   TRAIN config, fused assign, bf16 compute), on the devkit's PNG files
+   decoded by the port: ``2007_trainval`` (``TRAIN_SIZES``: eight images
+   in both orientations, flipped to 16 records) and ``2007_pipe``
+   (``PIPE_EVAL_IMAGES`` images, the same files under new ids).
+   ``AnchorLoader`` at 0, 2 and 4 worker processes, one seed, a first epoch
+   and then ``PIPE_RATE_BATCHES`` batches, and ``ROIIter``
+   (``PIPE_PROPOSALS`` cached proposals a record) for two epochs: every
+   batch bitwise equal to the serial producer's, and ``AnchorLoader``'s
+   batches/s alone after the first epoch;
+   ``fit`` for ``PIPE_STEPS`` steps from the training slice's checkpoint,
+   serial and through 2 workers, the assign pair once a step and step 1's
+   metrics bitwise equal; ``fit``'s step wall over ``PIPE_FIT_EPOCHS``
+   epochs at 0 and 2 workers × ``--prefetch`` 0 and 2, the assign pair
+   once a step; ``train_alternate`` on ``2007_trainval`` at ``--prefetch``
+   0 and 2, each stage's wall, the assign pair once a step in the RPN
+   stages and the NMS pair once a record in the proposal stages; the test
+   driver's serial loop on ``2007_pipe`` at ``--prefetch 0`` and ``2``,
+   the detections bit-identical, the NMS pair once a batch, loader wait and
+   images/s of each; the server in host-NMS mode with ``--loader-workers
+   2`` (the prep pool), as many requests as phase 7 over the serving
+   slice's sizes answered with the offline records of their batch row,
+   ``serve/host_prep`` p50/p99 beside the caller-thread figures of phase 7,
+   and after ``stop()`` no worker alive and the ring gone from
+   ``/dev/shm``, whose size is printed with the ring's bytes.
+10. One ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
@@ -125,6 +150,7 @@ import dataclasses
 import json
 import os
 import pickle
+import shutil
 import statistics
 import struct
 import subprocess
@@ -187,6 +213,12 @@ LOSS_KEYS = ("rpn_cls_loss", "rpn_bbox_loss", "rcnn_cls_loss",
 # image set is 2007_<EVAL_SPLIT>; the classes its objects are drawn from
 EVAL_SIZES = ((375, 500), (375, 500), (500, 375), (500, 375))
 EVAL_SPLIT = "smoke"
+# the input-pipeline slice's training images in the same devkit (image set
+# 2007_<TRAIN_SPLIT>), both orientations, landscape first; flipped, twice
+# the records
+TRAIN_SIZES = ((375, 500), (333, 500), (480, 640), (427, 640), (500, 375),
+               (500, 333), (640, 480), (640, 427))
+TRAIN_SPLIT = "trainval"
 EVAL_CLASSES = ("aeroplane", "bicycle", "bird", "car", "dog", "person")
 # the test driver's flags for the slice: the full network at the TEST
 # config, pixels scaled as the training slice scaled them
@@ -206,6 +238,24 @@ SERVE_CLIENTS = 4
 ALT_FLAGS = ["--network", "resnet101", "--dataset", "PascalVOC",
              "--cfg", "tpu__ASSIGN_FUSED=True"]
 ALT_STEPS = 2
+# the input-pipeline slice: the worker count held against the serial
+# producer, the counts whose loader rate is printed and the batches each
+# rate is read over (after a first epoch), cached proposals per record for
+# ROIIter, fit's steps for the bitwise check, the epochs of the timed fit
+# runs (the first one not timed) and the prefetch depths they compare, the
+# images of the eval split 2007_<PIPE_EVAL_SPLIT> (TRAIN_SIZES' images
+# again under new ids), and the requests through the prep pool (phase 7's
+# count, so that both p99 are read over as many requests)
+PIPE_WORKERS = 2
+PIPE_RATE_WORKERS = (0, 2, 4)
+PIPE_RATE_BATCHES = 200
+PIPE_PROPOSALS = 64
+PIPE_STEPS = 2
+PIPE_FIT_EPOCHS = 5
+PIPE_PREFETCH = (0, 2)
+PIPE_EVAL_SPLIT = "pipe"
+PIPE_EVAL_IMAGES = 48
+PIPE_REQUESTS = SERVE_REQUESTS
 
 
 def log(phase: str, **kw) -> None:
@@ -912,8 +962,13 @@ def train_slice(P, port, tcfg, dev, seed: int, ckpt_dir: str) -> dict:
         trainable_moved=len(changed), step_wall_s=step_walls,
         total_loss=[m["total_loss"] for m in seen])
 
-    # the loss must fall on one fixed batch
-    fixed = P.batch_put(next(iter(loader)), tcfg, dev)
+    # the loss must fall on one fixed batch; fit left its put hook on the
+    # loader, so the batch comes out on the card
+    it = iter(loader)
+    fixed = next(it)
+    it.close()
+    if not fixed["images"].is_cuda:
+        fail("fit's put hook did not put the loader's batch on the card")
     gen = torch.Generator(device=dev).manual_seed(seed)
     step_fn = P.make_train_step(tcfg)
     losses = []
@@ -1129,18 +1184,22 @@ def boxes_image(rng, h: int, w: int):
 
 def write_devkit(root: str, seed: int) -> str:
     """A VOC2007-layout devkit under ``root`` with the images of
-    ``EVAL_SIZES`` (landscape first, so a batch of two holds one
-    orientation) drawn by :func:`boxes_image`, each image PNG bytes under
-    its ``.jpg`` name, one XML annotation per image,
-    ``ImageSets/Main/<EVAL_SPLIT>.txt``.  Returns the devkit path."""
+    ``EVAL_SIZES`` and then of ``TRAIN_SIZES`` (landscape first, so a batch
+    of two holds one orientation) drawn by :func:`boxes_image`, each image
+    PNG bytes under its ``.jpg`` name, one XML annotation per image,
+    ``ImageSets/Main/<EVAL_SPLIT>.txt`` and ``<TRAIN_SPLIT>.txt``; then
+    ``<PIPE_EVAL_SPLIT>.txt`` over ``PIPE_EVAL_IMAGES`` new ids, the
+    ``TRAIN_SIZES`` files again in their order (a batch of two still holds
+    one orientation).  Returns the devkit path."""
     rng = np.random.RandomState(seed)
     devkit = os.path.join(root, "VOCdevkit")
     voc = os.path.join(devkit, "VOC2007")
     for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets",
                                                            "Main")):
         os.makedirs(os.path.join(voc, sub), exist_ok=True)
-    ids = [f"{i:06d}" for i in range(len(EVAL_SIZES))]
-    for idx, (h, w) in zip(ids, EVAL_SIZES):
+    sizes = EVAL_SIZES + TRAIN_SIZES
+    ids = [f"{i:06d}" for i in range(len(sizes))]
+    for idx, (h, w) in zip(ids, sizes):
         img, boxes = boxes_image(rng, h, w)
         xml = [f"<annotation><filename>{idx}.jpg</filename><size><width>"
                f"{w}</width><height>{h}</height><depth>3</depth></size>"]
@@ -1153,9 +1212,18 @@ def write_devkit(root: str, seed: int) -> str:
             f.write(png_bytes(img))
         with open(os.path.join(voc, "Annotations", idx + ".xml"), "w") as f:
             f.write("".join(xml) + "</annotation>")
-    with open(os.path.join(voc, "ImageSets", "Main", EVAL_SPLIT + ".txt"),
-              "w") as f:
-        f.write("\n".join(ids) + "\n")
+    n = len(EVAL_SIZES)
+    more = [f"{len(sizes) + i:06d}" for i in range(PIPE_EVAL_IMAGES)]
+    for i, idx in enumerate(more):
+        src = ids[n + i % len(TRAIN_SIZES)]
+        for sub, ext in (("JPEGImages", ".jpg"), ("Annotations", ".xml")):
+            shutil.copyfile(os.path.join(voc, sub, src + ext),
+                            os.path.join(voc, sub, idx + ext))
+    for split, part in ((EVAL_SPLIT, ids[:n]), (TRAIN_SPLIT, ids[n:]),
+                        (PIPE_EVAL_SPLIT, more)):
+        with open(os.path.join(voc, "ImageSets", "Main", split + ".txt"),
+                  "w") as f:
+            f.write("\n".join(part) + "\n")
     return devkit
 
 
@@ -1391,9 +1459,9 @@ def hist_delta_ms(P, hist, before: dict, q: float):
 
 
 def serve_mode(P, predictor, engine, cfg, sock: str, images: list,
-               e2e: bool) -> dict:
+               e2e: bool, requests: int = SERVE_REQUESTS) -> dict:
     """One mode of the in-process server: ``make_server`` on ``sock``,
-    ``warmup`` (2 programs), then ``SERVE_REQUESTS`` requests from
+    ``warmup`` (2 programs), then ``requests`` requests from
     ``SERVE_CLIENTS`` threads over the socket with the NMS counters set to
     0 just before and read just after; every reply 200, no first dispatch,
     1 h2d copy / dispatch / readback a batch, the NMS kernels 1 (host NMS)
@@ -1421,11 +1489,11 @@ def serve_mode(P, predictor, engine, cfg, sock: str, images: list,
         hists0 = {k: h.to_dict() for k, h in engine.hists.items()}
         spans0 = P.telemetry.get().summary()["spans"]
         payloads = [P.serve.encode_image_payload(im) for im in images]
-        replies = [None] * SERVE_REQUESTS
-        rtt = [None] * SERVE_REQUESTS
+        replies = [None] * requests
+        rtt = [None] * requests
 
         def client(c):
-            for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+            for i in range(c, requests, SERVE_CLIENTS):
                 t = time.perf_counter()
                 replies[i] = P.serve.unix_http_request(
                     sock, "POST", "/predict", payloads[i % len(images)],
@@ -1445,7 +1513,7 @@ def serve_mode(P, predictor, engine, cfg, sock: str, images: list,
         launches = {"nms_mask": P.nms_cuda.nms_mask.launches,
                     "nms_sweep": P.nms_cuda.nms_sweep.launches}
         statuses = [r[0] if r else None for r in replies]
-        if statuses != [200] * SERVE_REQUESTS:
+        if statuses != [200] * requests:
             fail(f"serve [{mode}]: statuses {statuses}")
         status, prom = P.serve.unix_http_request(sock, "GET",
                                                  "/metrics?format=prom")
@@ -1500,8 +1568,8 @@ def serve_mode(P, predictor, engine, cfg, sock: str, images: list,
             * 1e3
     rtt_ms = np.asarray(rtt) * 1e3
     return {"mode": mode, "warmup_programs": compiled, "warmup_s": warm_s,
-            "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
-            "wall_s": wall, "requests_per_s": SERVE_REQUESTS / wall,
+            "requests": requests, "clients": SERVE_CLIENTS,
+            "wall_s": wall, "requests_per_s": requests / wall,
             **latency, "client_rtt_p50_ms": float(np.percentile(rtt_ms, 50)),
             "client_rtt_p99_ms": float(np.percentile(rtt_ms, 99)),
             "client_rtt_max_ms": float(rtt_ms.max()),
@@ -1926,6 +1994,398 @@ def check_kept_rows(P, cfg, predictor, images, im_info):
     return kept, boxes, valid
 
 
+# ---- the input-pipeline slice -------------------------------------------------
+
+def loader_epochs(loader, epochs: int):
+    """``epochs`` passes of a loader → (its host batches, each pass's wall
+    seconds); its workers closed after.  The batches are the loader's own
+    arrays (each one fresh), kept without a copy inside the timed loop."""
+    batches, walls = [], []
+    try:
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            batches.extend(loader)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        loader.close_workers()
+    return batches, walls
+
+
+def batches_differ(got, want) -> str:
+    """'' when both lists hold the same batches bitwise, every key and
+    dtype; else where they first differ."""
+    if len(got) != len(want):
+        return f"{len(got)} batches against {len(want)}"
+    for i, (a, b) in enumerate(zip(got, want)):
+        if list(a) != list(b):
+            return f"batch {i}: keys {list(a)} against {list(b)}"
+        for k in a:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                return f"batch {i}, key {k}"
+    return ""
+
+
+def shm_report(P) -> dict:
+    """``/dev/shm``'s size and what is free, in bytes."""
+    try:
+        st = os.statvfs(P.workers._SHM_DIR)
+    except OSError:
+        return {"path": P.workers._SHM_DIR, "size": None, "free": None}
+    return {"path": P.workers._SHM_DIR, "size": st.f_blocks * st.f_frsize,
+            "free": st.f_bavail * st.f_frsize}
+
+
+def timed_fit(P, cfg, model, params, roidb, seed: int, device,
+              counters: dict) -> dict:
+    """``fit`` over ``PIPE_FIT_EPOCHS`` epochs of an ``AnchorLoader`` on
+    ``roidb`` (its ``LOADER_WORKERS`` and ``PREFETCH`` from ``cfg``), the
+    metrics fetched once an epoch; the assign counters set to 0 just
+    before and read just after, once a step.  The step wall is read from
+    the end of epoch 0 (pool start-up, first fill) to the end of the
+    last."""
+    loader = P.AnchorLoader(roidb, cfg, BATCH, seed=seed)
+    steps = loader.steps_per_epoch
+    marks, seen = [], []
+
+    def on_epoch(e, st, m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        seen.append(m)
+
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    try:
+        P.fit(cfg, model, params, loader, end_epoch=PIPE_FIT_EPOCHS,
+              seed=seed, frequent=steps, device=device,
+              batch_end_callback=on_epoch)
+    finally:
+        loader.close_workers()
+    launches = {k: f.launches for k, f in counters.items()}
+    tag = f"workers {cfg.tpu.LOADER_WORKERS}, prefetch {cfg.tpu.PREFETCH}"
+    if len(marks) != PIPE_FIT_EPOCHS:
+        fail(f"pipeline timed fit [{tag}]: {len(marks)} epochs fetched")
+    for name, count in launches.items():
+        if count != PIPE_FIT_EPOCHS * steps:
+            fail(f"pipeline timed fit [{tag}]: {name} launched {count} times "
+                 f"in {PIPE_FIT_EPOCHS * steps} steps")
+    if not all(np.isfinite(v) for m in seen for v in m.values()):
+        fail(f"pipeline timed fit [{tag}]: non-finite metrics {seen}")
+    timed = (PIPE_FIT_EPOCHS - 1) * steps
+    return {"steps_timed": timed, "launches": launches,
+            "step_ms": (marks[-1] - marks[0]) / timed * 1e3,
+            "epoch_s": np.diff(marks).tolist(),
+            "total_loss": [m["total_loss"] for m in seen]}
+
+
+def timed_alternate(P, pretrained: str, root: str, devkit: str, work: str,
+                    seed: int, prefetch: int, device=None,
+                    flags=ALT_FLAGS + ["--cfg", f"network__PIXEL_STDS="
+                                                f"{PIXEL_STDS!r}"]) -> dict:
+    """``train_alternate.alternate_train`` on the devkit's ``TRAIN_SPLIT``
+    (PNG files, one epoch a stage) at ``--prefetch prefetch``, serial
+    loaders: each stage timed, model build included, the kernel counts set
+    to 0 just before it and read just after (the assign pair once a step
+    in the RPN stages, the NMS pair once a record in the proposal
+    stages)."""
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep,
+                "assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+    stages = []
+
+    def timed(stage, graph):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            for f in counters.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            out = stage(*a, **kw)
+            torch.cuda.synchronize()
+            n = len(out) if graph == "proposals" else out.step
+            stages.append({"graph": graph, "wall_s": time.perf_counter() - t0,
+                           "n": n, "launches": {k: f.launches
+                                                for k, f in counters.items()}})
+            return out
+        return wrapped
+
+    saved = {name: getattr(P.train_alternate, name)
+             for name in ("train_rpn", "test_rpn", "train_rcnn")}
+    for name, graph in (("train_rpn", "rpn"), ("test_rpn", "proposals"),
+                        ("train_rcnn", "rcnn")):
+        setattr(P.train_alternate, name, timed(saved[name], graph))
+    argv = flags + [
+        "--image_set", f"2007_{TRAIN_SPLIT}", "--root_path", root, "--dataset_path", devkit,
+        "--batch_images", str(BATCH), "--end_epoch", "1", "--frequent",
+        "1000", "--seed", str(seed), "--pretrained", pretrained, "--prefix",
+        os.path.join(work, f"alt-p{prefetch}", "alt"), "--prefetch",
+        str(prefetch)] + (["--device", str(device)] if device else [])
+    t0 = time.perf_counter()
+    try:
+        P.train_alternate.alternate_train(P.train_alternate.parse_args(argv))
+    finally:
+        for name, f in saved.items():
+            setattr(P.train_alternate, name, f)
+    total_s = time.perf_counter() - t0
+    if [st["graph"] for st in stages] != ["rpn", "proposals", "rcnn"] * 2:
+        fail(f"pipeline alternate [prefetch {prefetch}]: stages ran as "
+             f"{[st['graph'] for st in stages]}")
+    for st in stages:
+        n, la = st["n"], st["launches"]
+        want = {"nms_mask": 0, "nms_sweep": 0, "assign_gtmax": 0,
+                "assign_rows": 0}
+        if st["graph"] == "proposals":
+            want.update(nms_mask=n, nms_sweep=n)
+        elif st["graph"] == "rpn":
+            want.update(assign_gtmax=n, assign_rows=n)
+        if n < 1 or la != want:
+            fail(f"pipeline alternate [prefetch {prefetch}]: {st['graph']} "
+                 f"stage of {n} launched {la}, expected {want}")
+    return {"total_s": total_s, "stages": stages}
+
+
+def pipeline_slice(P, tcfg, prefix: str, epoch: int, work: str, seed: int,
+                   serve_caller: dict, device=None, flags=EVAL_FLAGS,
+                   alt_flags=None) -> dict:
+    """The host input pipeline under training, evaluation and serving, at
+    the training slice's width, on the devkit's PNG files (decoded by the
+    port):
+
+    * ``AnchorLoader`` on ``TRAIN_SPLIT`` at each of ``PIPE_RATE_WORKERS``,
+      the same seed, for a first epoch and then ``PIPE_RATE_BATCHES``
+      batches, and ``ROIIter`` (``PIPE_PROPOSALS`` cached proposals a
+      record) for two epochs: every batch of every epoch bitwise equal to
+      the serial producer's; ``AnchorLoader``'s batches/s alone after the
+      first epoch (``ROIIter`` adds the proposals in the parent: its rate
+      was within 6% of it over 200 batches, PERF.md);
+    * ``fit`` for ``PIPE_STEPS`` steps from the training slice's checkpoint,
+      serial and at ``PIPE_WORKERS`` workers, the assign counters set to 0
+      just before each and read just after: once a step; step 1's metrics
+      equal bitwise; then ``fit``'s step wall over ``PIPE_FIT_EPOCHS``
+      epochs at 0 and ``PIPE_WORKERS`` workers × each of ``PIPE_PREFETCH``
+      (:func:`timed_fit`);
+    * ``train_alternate`` on ``TRAIN_SPLIT``, one epoch a stage, at each of
+      ``PIPE_PREFETCH`` (:func:`timed_alternate`): the stages' walls;
+    * ``test_rcnn``'s serial loop over ``PIPE_EVAL_SPLIT`` at each of
+      ``PIPE_PREFETCH``: the detections bit-identical, the NMS pair once a
+      batch, loader wait and images/s of each;
+    * the server in host-NMS mode with ``--loader-workers PIPE_WORKERS``:
+      ``PIPE_REQUESTS`` requests staged in the prep pool answer the offline
+      records of their batch row (:func:`serve_mode`); after ``stop()`` the
+      workers are gone and the ring unlinked."""
+    tstart = time.perf_counter()
+    devkit = write_devkit(work, seed)
+    root = os.path.join(work, "data")
+    imdb = P.PascalVOC(f"2007_{TRAIN_SPLIT}", root, devkit)
+    roidb = P.get_train_roidb(imdb, tcfg)
+
+    def with_pipe(workers: int, prefetch: int = 2):
+        return tcfg.replace(tpu=dataclasses.replace(
+            tcfg.tpu, LOADER_WORKERS=workers, PREFETCH=prefetch))
+
+    rng = np.random.RandomState(seed)
+    with_props = []
+    for rec in roidb:
+        xy = rng.rand(PIPE_PROPOSALS, 2) * [rec["width"] - 40,
+                                            rec["height"] - 40]
+        wh = rng.rand(PIPE_PROPOSALS, 2) * 30 + 8
+        with_props.append(dict(rec, proposals=np.concatenate(
+            [xy, xy + wh], 1).astype(np.float32)))
+
+    # ---- the loaders alone ----
+    loaders, rates = {}, {}
+    for name, cls, records, timed in (
+            ("anchor", P.AnchorLoader, roidb, True),
+            ("roi", P.ROIIter, with_props, False)):
+        want = None
+        for workers in PIPE_RATE_WORKERS:
+            ld = cls(records, with_pipe(workers), BATCH, seed=seed)
+            steps = ld.steps_per_epoch
+            epochs = 1 + (-(-PIPE_RATE_BATCHES // steps) if timed else 1)
+            batches, walls = loader_epochs(ld, epochs)
+            if timed:
+                rates[f"{name}_w{workers}"] = {
+                    "batches_timed": (epochs - 1) * steps,
+                    "first_epoch_s": walls[0],
+                    "batches_per_s": (epochs - 1) * steps / sum(walls[1:])}
+            if want is None:
+                want = batches
+                continue
+            diff = batches_differ(batches, want)
+            if diff:
+                fail(f"pipeline: {name} loader at {workers} workers differs "
+                     f"from the serial producer at {diff}")
+            del batches
+        loaders[name] = {"records": len(records), "batches": len(want),
+                         "epochs": epochs, "bitwise_equal": True}
+        del want
+    log("pipeline_loaders", split=TRAIN_SPLIT, records=len(roidb),
+        batch=BATCH, loaders=loaders, rates=rates,
+        shm=shm_report(P), slot_bytes=P.workers.slot_bytes_for(tcfg),
+        ring_bytes={w: max(2 * w + 2, 4) * P.workers.slot_bytes_for(tcfg)
+                    for w in PIPE_RATE_WORKERS[1:]})
+
+    # ---- fit through the pool ----
+    counters = {"assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+    params = P.load_params_npz(P.epoch_path(prefix, epoch))
+    model = P.build_model(tcfg)
+    fits = {}
+    for workers in (0, PIPE_WORKERS):
+        cfg_w = with_pipe(workers)
+        loader = P.CappedLoader(P.AnchorLoader(roidb, cfg_w, BATCH,
+                                               seed=seed), PIPE_STEPS)
+        seen = []
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        try:
+            P.fit(cfg_w, model, params, loader, end_epoch=1, seed=seed,
+                  frequent=1, device=device,
+                  batch_end_callback=lambda e, st, m: seen.append(m))
+            torch.cuda.synchronize()
+        finally:
+            loader.close_workers()
+        launches = {k: f.launches for k, f in counters.items()}
+        if len(seen) != PIPE_STEPS:
+            fail(f"pipeline: fit at {workers} workers took {len(seen)} "
+                 f"steps, expected {PIPE_STEPS}")
+        for name, count in launches.items():
+            if count != PIPE_STEPS:
+                fail(f"pipeline: {name} launched {count} times in "
+                     f"{PIPE_STEPS} steps at {workers} workers")
+        if not all(np.isfinite(v) for m in seen for v in m.values()):
+            fail(f"pipeline: non-finite metrics at {workers} workers: {seen}")
+        fits[workers] = {"metrics": seen, "launches": launches,
+                         "wall_s": time.perf_counter() - t0}
+    serial, pooled = fits[0]["metrics"], fits[PIPE_WORKERS]["metrics"]
+    if serial[0] != pooled[0]:
+        print(json.dumps({"step1_serial": serial[0],
+                          f"step1_workers{PIPE_WORKERS}": pooled[0]}),
+              flush=True)
+        fail("pipeline: fit's step-1 metrics differ between the serial "
+             "producer and the worker pool")
+    timed = {f"w{w}_p{p}": timed_fit(P, with_pipe(w, p), model, params,
+                                     roidb, seed, device, counters)
+             for w in (0, PIPE_WORKERS) for p in PIPE_PREFETCH}
+    log("pipeline_fit", steps=PIPE_STEPS, workers=[0, PIPE_WORKERS],
+        step1_bitwise_equal=True, later_steps_equal=serial == pooled,
+        runs=fits, timed_epochs=PIPE_FIT_EPOCHS, timed=timed)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # ---- alternate training at each prefetch depth ----
+    alt_kw = {} if alt_flags is None else {"flags": alt_flags}
+    alts = {f"prefetch_{p}": timed_alternate(
+        P, P.epoch_path(prefix, epoch), root, devkit, work, seed, p, device,
+        **alt_kw) for p in PIPE_PREFETCH}
+    log("pipeline_alternate", split=TRAIN_SPLIT, batch=BATCH, runs=alts)
+    torch.cuda.empty_cache()
+
+    # ---- evaluation with and without the prefetch thread ----
+    args = flags + ["--image_set", f"2007_{PIPE_EVAL_SPLIT}", "--root_path",
+                    root, "--dataset_path", devkit, "--prefix", prefix,
+                    "--epoch", str(epoch), "--batch_images", str(BATCH),
+                    "--eval-inflight", "0"]
+    if device is not None:
+        args += ["--device", str(device)]
+    n_batches = -(-PIPE_EVAL_IMAGES // BATCH)
+    evals, boxes = {}, {}
+    for prefetch in PIPE_PREFETCH:
+        cache = os.path.join(work, f"pipe-dets-{prefetch}.pkl")
+        P.nms_cuda.nms_mask.launches = P.nms_cuda.nms_sweep.launches = 0
+        out = P.test_driver.test_rcnn(P.test_driver.parse_args(
+            args + ["--prefetch", str(prefetch), "--dets_cache", cache]))
+        launches = {"nms_mask": P.nms_cuda.nms_mask.launches,
+                    "nms_sweep": P.nms_cuda.nms_sweep.launches}
+        for name, count in launches.items():
+            if count != n_batches:
+                fail(f"pipeline eval [prefetch {prefetch}]: {name} launched "
+                     f"{count} times in {n_batches} batches")
+        with open(cache, "rb") as f:
+            boxes[prefetch] = pickle.load(f)
+        ep = out["eval_pipeline"]
+        evals[prefetch] = {"mAP": out["mAP"], "launches": launches,
+                           "loader_wait_s": ep["loader_wait_s"],
+                           "imgs_per_sec": ep["imgs_per_sec"],
+                           "wall_s": ep["wall_s"]}
+    base = boxes[PIPE_PREFETCH[0]]
+    for p in PIPE_PREFETCH[1:]:
+        for k in range(1, len(base)):
+            for i, (a, b) in enumerate(zip(boxes[p][k], base[k],
+                                           strict=True)):
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    fail(f"pipeline eval: the detections of class {k} in "
+                         f"image {i} at --prefetch {p} differ from the "
+                         f"serial loop's")
+    log("pipeline_eval", split=PIPE_EVAL_SPLIT, images=PIPE_EVAL_IMAGES,
+        batch=BATCH, bit_identical=True,
+        modes={f"prefetch_{p}": e for p, e in evals.items()})
+
+    # ---- serving through the prep pool ----
+    rng = np.random.RandomState(seed)
+    images = [boxes_image(rng, *hw)[0] for hw in SERVE_SIZES]
+    P.telemetry.configure(work, stream=False)
+    sargs = P.serve_driver.parse_args(
+        flags + ["--prefix", prefix, "--epoch", str(epoch), "--serve-batch",
+                 str(BATCH), "--max-delay-ms", "10", "--loader-workers",
+                 str(PIPE_WORKERS), "--unix-socket", "unused"]
+        + (["--device", str(device)] if device is not None else []))
+    cfg = P.config_from_args(sargs, train=False)
+    predictor, engine = P.serve_driver.build_engine(sargs, cfg)
+    pool = engine._pool
+    if pool is None or pool.num_workers != PIPE_WORKERS:
+        engine.stop()
+        fail(f"serve: --loader-workers {PIPE_WORKERS} made no prep pool of "
+             f"{PIPE_WORKERS} workers")
+    staged = [0]
+    prepare = pool.prepare
+
+    def counted(*a, **k):
+        staged[0] += 1
+        return prepare(*a, **k)
+
+    pool.prepare = counted
+    name, ring = pool.shm_name, pool.ring_bytes
+    try:
+        served = serve_mode(P, predictor, engine, cfg,
+                            os.path.join(work, "pool.sock"), images,
+                            e2e=False, requests=PIPE_REQUESTS)
+    finally:
+        engine.stop()
+        P.telemetry.shutdown()
+    end = time.monotonic() + 10
+    while pool.alive_workers() and time.monotonic() < end:
+        time.sleep(0.05)
+    if pool.alive_workers():
+        fail(f"serve: {pool.alive_workers()} prep workers alive after stop()")
+    if os.path.exists(os.path.join(P.workers._SHM_DIR, name.lstrip("/"))):
+        fail(f"serve: the prep ring {name} is still in /dev/shm after stop()")
+    if staged[0] < PIPE_REQUESTS:
+        fail(f"serve: {staged[0]} of {PIPE_REQUESTS} requests staged in the "
+             f"prep pool")
+    caller = serve_caller["host_nms"]
+    log("pipeline_serve", workers=PIPE_WORKERS, ring_bytes=ring,
+        staged_in_pool=staged[0], requests=PIPE_REQUESTS,
+        records_match_offline=True, workers_gone=True, ring_unlinked=True,
+        host_prep_ms={"pool": [served["host_prep_p50_ms"],
+                               served["host_prep_p99_ms"]],
+                      "caller_thread": [caller["host_prep_p50_ms"],
+                                        caller["host_prep_p99_ms"]]},
+        request_time_ms={"pool": [served["request_time_p50_ms"],
+                                  served["request_time_p99_ms"]],
+                         "caller_thread": [caller["request_time_p50_ms"],
+                                           caller["request_time_p99_ms"]]},
+        requests_per_s={"pool": served["requests_per_s"],
+                        "caller_thread": caller["requests_per_s"]},
+        mode=served)
+    del predictor, engine
+    torch.cuda.empty_cache()
+    log("pipeline_total", seconds=time.perf_counter() - tstart)
+    return {"rates": rates, "eval": evals, "serve": served}
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -1936,7 +2396,8 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch import train_alternate
     from mx_rcnn_tpu_torch.config import generate_config
     from mx_rcnn_tpu_torch.data import image as image_mod
-    from mx_rcnn_tpu_torch.data.loader import AnchorLoader, TestLoader
+    from mx_rcnn_tpu_torch.data import workers
+    from mx_rcnn_tpu_torch.data.loader import AnchorLoader, ROIIter, TestLoader
     from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
     from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from mx_rcnn_tpu_torch.eval import tester
@@ -1956,14 +2417,16 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.tools import test_rpn as test_rpn_mod
     from mx_rcnn_tpu_torch.tools import train_rcnn as train_rcnn_mod
     from mx_rcnn_tpu_torch.tools import train_rpn as train_rpn_mod
-    from mx_rcnn_tpu_torch.tools.common import (config_from_args,
+    from mx_rcnn_tpu_torch.tools.common import (CappedLoader,
+                                                config_from_args,
+                                                get_train_roidb,
                                                 load_eval_params)
     from mx_rcnn_tpu_torch.train.checkpoint import (denormalize_for_save,
                                                     epoch_path,
                                                     load_params_npz,
                                                     save_params_npz)
     from mx_rcnn_tpu_torch.train.train_step import make_train_step
-    from mx_rcnn_tpu_torch.train.trainer import batch_put, fit
+    from mx_rcnn_tpu_torch.train.trainer import fit
     from mx_rcnn_tpu_torch.utils.convert_jax import (export_jax_params,
                                                      load_jax_params,
                                                      random_params)
@@ -2151,12 +2614,17 @@ def main() -> int:
 
         # ---- 7. the serving slice at full width -------------------------------
         t0 = time.perf_counter()
-        serve_slice(P, prefix, epoch, work, args.seed)
+        served = serve_slice(P, prefix, epoch, work, args.seed)
         log("serve_total", seconds=time.perf_counter() - t0)
 
         # ---- 8. the alternate-training slice at full width --------------------
         torch.cuda.empty_cache()
         alternate_slice(P, P.epoch_path(prefix, epoch), work, args.seed)
+
+        # ---- 9. the host input pipeline at full width -------------------------
+        torch.cuda.empty_cache()
+        pipeline_slice(P, tcfg, prefix, epoch, work, args.seed, served,
+                       device=dev)
     log("total", seconds=time.perf_counter() - t_start)
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -8,10 +8,12 @@ settings live there).  Field names and defaults follow the reference's
 assembled by a pure ``generate_config`` instead of a mutable easydict.
 
 Fields that only the JAX package's TPU programs read (mesh axes, remat,
-prefetch and loader knobs, ``DEVICE_PREP``) are kept so that configs
-round-trip between the packages; the port ignores them (it always preps
-on the device).  ``ASSIGN_FUSED`` selects the fused assign kernel in the
-port too; its default stays the JAX package's.
+``DEVICE_PREP``) are kept so that configs round-trip between the
+packages; the port ignores them (it always preps on the device).
+``ASSIGN_FUSED`` selects the fused assign kernel in the port too, and the
+loader knobs (``PREFETCH``, ``PREFETCH_WATCHDOG_S``, ``LOADER_WORKERS``)
+drive ``data/loader.py``; their defaults stay the JAX package's but for
+``PREFETCH``, 0 in the port.
 """
 
 from __future__ import annotations
@@ -159,7 +161,12 @@ class TPUConfig:
     ROI_SAMPLING_RATIO: int = 1
     # RoI pooling reduction: "avg", "max" or "exact"
     ROI_MODE: str = "avg"
-    PREFETCH: int = 2
+    # batches the loaders' prefetch thread keeps ready; 0 (the port's
+    # default, the JAX package's is 2) reads them on the consuming thread:
+    # on the card the thread made fit's steps, the alternate stages and
+    # evaluation slower, its numpy decode and copies contending for the
+    # interpreter lock with the eager launches (PERF.md, PR 11)
+    PREFETCH: int = 0
     EVAL_INFLIGHT: int = 2
     EVAL_HOST_WORKERS: int = 2
     PREFETCH_WATCHDOG_S: float = 600.0

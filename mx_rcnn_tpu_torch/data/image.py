@@ -329,20 +329,22 @@ def get_image(path: str, flipped: bool = False) -> np.ndarray:
     ``cv2.imread`` + BGR→RGB).  The format is taken from the file's
     signature, not its name, as cv2 does: PNG through :func:`decode_png`;
     JPEG through PIL when it is importable, else a ``RuntimeError`` that
-    names the missing decoder.  ``flipped`` mirrors the columns."""
+    names the missing decoder; a JPEG's EXIF orientation is applied, as
+    cv2 applies it.  ``flipped`` mirrors the columns."""
     head = _read_head(path, 8)
     if head.startswith(_PNG_SIG):
         with open(path, "rb") as f:
             im = decode_png(f.read())
     elif head.startswith(_JPEG_SIG):
         try:
-            from PIL import Image
+            from PIL import Image, ImageOps
         except ImportError:
             raise RuntimeError(
                 f"{path}: JPEG decoding needs PIL (Pillow), which is not "
                 f"installed; the port decodes PNG itself") from None
         with Image.open(path) as f:
-            im = np.asarray(f.convert("RGB"))
+            # the EXIF orientation applied, as cv2.imread(IMREAD_COLOR) does
+            im = np.asarray(ImageOps.exif_transpose(f).convert("RGB"))
     else:
         raise ValueError(f"{path}: neither PNG nor JPEG")
     if flipped:
@@ -352,7 +354,9 @@ def get_image(path: str, flipped: bool = False) -> np.ndarray:
 
 def image_size(path: str) -> Tuple[int, int]:
     """(height, width) of a PNG or JPEG file from its header (the PNG IHDR,
-    the JPEG start-of-frame marker), without decoding the pixels."""
+    the JPEG start-of-frame marker), without decoding the pixels.  A
+    JPEG's EXIF orientation is not applied: the JAX package's records take
+    PIL's unrotated size."""
     head = _read_head(path, 24)
     if head.startswith(_PNG_SIG):
         w, h = struct.unpack(">II", head[16:24])

@@ -14,10 +14,10 @@ decoded and NMSed on the host.
   serial loop at any depth.
 
 ``inflight=1`` degenerates to the serial order; ``inflight=2`` is double
-buffering, the default (``cfg.tpu.EVAL_INFLIGHT``).  Not ported: the
-loader's prefetch thread (a batch is read and staged on the dispatching
-thread, so the loader's time is not overlapped), the mask pass, drawing
-and the telemetry spans.
+buffering, the default (``cfg.tpu.EVAL_INFLIGHT``).  A batch arrives on the
+device: the loader's ``put`` hook copied it, on the prefetch thread when
+there is one; ``loader_wait_s`` is the wait for it.  Not
+ported: the mask pass, drawing and the telemetry spans.
 """
 
 from __future__ import annotations
@@ -66,7 +66,9 @@ def run_pipelined(predictor, test_loader, *, all_boxes, num_classes,
     """Drive the overlapped loop; fills ``all_boxes`` in place and returns
     the stats ``pred_eval`` reports (seconds: ``loader_wait_s``, the
     host tasks' ``readback_wait_s`` on the copies and ``host_post_s`` in
-    all, and ``post_wait_s``, the dispatching thread's wait on them)."""
+    all, and ``post_wait_s``, the dispatching thread's wait on them).
+    The loader's batches arrive on the device (``pred_eval`` installs
+    ``Predictor.batch_put`` as its ``put`` hook)."""
     mode = "pipelined+devpost" if device_postprocess else "pipelined"
     inflight = max(int(inflight), 1)
     window: deque = deque()   # dispatched, not yet handed to the pool
@@ -80,7 +82,6 @@ def run_pipelined(predictor, test_loader, *, all_boxes, num_classes,
                               thread_name_prefix="eval-post")
 
     def dispatch(batch) -> None:
-        batch = predictor.batch_put(batch)
         if device_postprocess:
             arrays = predictor.predict_detections(
                 batch["images"], batch["im_info"], max_per_image, thresh)

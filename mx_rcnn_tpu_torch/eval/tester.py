@@ -360,6 +360,12 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
     ``max_per_image`` rows per image.  Exact score ties at the cap may
     resolve differently from the host route.
 
+    The loader's ``put`` hook (the ``TestLoader`` contract) is set to
+    :meth:`Predictor.batch_put`, so that each batch comes on the device,
+    copied and prepped on the prefetch thread when there is one;
+    ``loader_wait_s`` is the wait for the next batch (at ``prefetch`` 0,
+    its read and copy).
+
     Returns the scorer's dict, plus ``"eval_pipeline"``: the loop's
     mode, images, wall time, images per second, loader wait and, for the
     overlapped loop, its readback wait, host post-process time, the time
@@ -372,6 +378,9 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
     if with_masks:
         raise NotImplementedError("pred_eval(with_masks=True): the mask "
                                   "branch is not ported (ROADMAP.md A.7)")
+    if not hasattr(test_loader, "put"):
+        raise TypeError(f"pred_eval: {type(test_loader).__name__} has no "
+                        f"put hook (the TestLoader contract)")
     cfg = predictor.cfg
     if max_per_image is None:
         max_per_image = cfg.TEST.MAX_PER_IMAGE
@@ -385,6 +394,8 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
     num_images = imdb.num_images
     if det_cache:
         _probe_det_cache(det_cache)
+
+    test_loader.put = predictor.batch_put  # batches arrive on the device
 
     all_boxes: List[List] = [[None for _ in range(num_images)]
                              for _ in range(num_classes)]
@@ -412,7 +423,6 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
             except StopIteration:
                 break
             loader_wait += time.perf_counter() - t_wait
-            batch = predictor.batch_put(batch)
             if device_postprocess:
                 dets = _im_detect_device(predictor, batch, max_per_image,
                                          thresh, num_classes)

@@ -9,7 +9,9 @@ SIGINT.  Run as ``python -m mx_rcnn_tpu_torch.serve``::
     python -m mx_rcnn_tpu_torch.serve --prefix model/e2e --epoch 10 \\
         --unix-socket /tmp/serve.sock --target-p99-ms 200
 
-``--synthetic`` serves seeded random weights (seed 0) and scales
+``--loader-workers N`` stages host-NMS requests in N worker processes
+(``data/workers.py``; the ring lives in ``/dev/shm``).  ``--synthetic``
+serves seeded random weights (seed 0) and scales
 pixels by 127 (random weights cannot absorb the raw 0..255 range).
 Without a card the driver raises unless it is given ``--device cpu``.  The
 first SIGTERM/SIGINT shuts down in order (frontend, controller, engine,
@@ -110,7 +112,8 @@ def build_engine(args, cfg):
     engine = ServeEngine(predictor, cfg, ServeOptions(
         batch_size=args.serve_batch, max_delay_ms=args.max_delay_ms,
         max_queue=args.max_queue, deadline_ms=args.deadline_ms,
-        serve_e2e=args.serve_e2e))
+        # the common --loader-workers sizes the request staging pool
+        prep_workers=args.loader_workers or 0, serve_e2e=args.serve_e2e))
     return predictor, engine.start()
 
 

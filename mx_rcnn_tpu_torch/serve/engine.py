@@ -9,11 +9,15 @@ traffic coalesces into full batches of a handful of programs, and warmup
 
 Mechanics:
 
-* ``submit`` stages the raw uint8 image into its orientation's bucket ON
-  THE CALLER'S THREAD (``data.image.stage_raw_to_bucket``: a pad-copy; a
-  raw larger than the bucket is pre-shrunk there, as cv2 would), routes it
-  to that bucket's queue and returns a :class:`ServeFuture`.  Request
-  threads touch numpy only.
+* ``submit`` stages the raw uint8 image into its orientation's bucket
+  (``data.image.stage_raw_to_bucket``: a pad-copy; a raw larger than the
+  bucket is pre-shrunk there, as cv2 would), routes it to that bucket's
+  queue and returns a :class:`ServeFuture`.  The staging runs on the
+  caller's thread, or with ``prep_workers`` > 0 in host-NMS mode in the
+  prep worker pool (``data/workers.py:WorkerPool.prepare``, made by
+  ``start()`` and closed by ``stop()``), off the interpreter lock the
+  request threads share; in ``serve_e2e`` mode the caller stages, as in
+  the JAX package.  Request threads touch numpy only.
 * One dispatcher thread owns the device: every tensor op, kernel launch
   and readback of a batch runs on it (the kernels' launch counters are
   plain integers).  It flushes a bucket when it holds ``batch_size``
@@ -64,10 +68,9 @@ bucket's flush threshold and delay (the program shape never changes),
 ``set_admit_limit`` sheds submits (503, ``serve/shed``) below
 ``max_queue``.
 
-Not ported yet (ROADMAP.md): the prep worker pool (``prep_workers > 0``
-raises), request capture, and cascade intake (``submit_staged``).  The
-``stream`` and ``cascade`` attributes stay None for the slices that attach
-to them.
+Not ported yet (ROADMAP.md): request capture and cascade intake
+(``submit_staged``).  The ``stream`` and ``cascade`` attributes stay None
+for the slices that attach to them.
 """
 
 from __future__ import annotations
@@ -113,7 +116,8 @@ class ServeOptions:
     max_queue: int = 64
     # default per-request deadline (<= 0 disables); requests may override
     deadline_ms: float = 30000.0
-    # host prep worker processes: not ported, must stay 0
+    # staging worker processes for host-NMS mode (the driver's
+    # --loader-workers); 0 stages on the caller's thread
     prep_workers: int = 0
     # single-dispatch serving: prep, forward and the device post-process
     # in one call, one (B, cap, 7) readback
@@ -126,10 +130,9 @@ class ServeOptions:
             raise ValueError(
                 f"max_queue ({self.max_queue}) must be >= batch_size "
                 f"({self.batch_size}) or a full batch could never queue")
-        if self.prep_workers:
-            raise NotImplementedError(
-                "prep_workers > 0: the serving prep worker pool is not "
-                "ported (ROADMAP.md); staging runs on the caller's thread")
+        if self.prep_workers < 0:
+            raise ValueError(
+                f"prep_workers must be >= 0, got {self.prep_workers}")
 
 
 class ServeFuture:
@@ -240,6 +243,7 @@ class ServeEngine:
         # attached by the stream and cascade layers when they are ported
         self.stream = None
         self.cascade = None
+        self._pool = None  # the prep worker pool (opts.prep_workers > 0)
 
     # -- lifecycle -------------------------------------------------------
 
@@ -248,6 +252,12 @@ class ServeEngine:
         flushing to a caller of :meth:`poll` + :meth:`dispatch_batch`."""
         assert self._thread is None and not self._external, \
             "engine already started"
+        if self.opts.prep_workers > 0 and self._pool is None:
+            from mx_rcnn_tpu_torch.data.workers import WorkerPool
+
+            # image-only: raw frames in, staged buckets back through the ring
+            self._pool = WorkerPool(self.cfg,
+                                    num_workers=self.opts.prep_workers)
         if external:
             self._external = True
             return self
@@ -269,6 +279,9 @@ class ServeEngine:
             self._thread.join(timeout=timeout)
             self._thread = None
         self._external = False
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
 
     # -- readiness / drain -----------------------------------------------
 
@@ -403,8 +416,12 @@ class ServeEngine:
             raise ValueError(f"expected uint8 pixels, got {image.dtype}")
         tel = telemetry.get()
         t_prep = time.perf_counter()
-        staged, raw_hw, ratio, im_info = stage_raw_to_bucket(
-            image, self._scale, self._stride)
+        pool = self._pool
+        if pool is not None and not self.opts.serve_e2e:
+            staged, raw_hw, ratio, im_info = pool.prepare(image, self._scale)
+        else:
+            staged, raw_hw, ratio, im_info = stage_raw_to_bucket(
+                image, self._scale, self._stride)
         prep_s = time.perf_counter() - t_prep
         self.hists["serve/host_prep"].observe(prep_s)
         tel.observe("serve/host_prep", prep_s)

@@ -5,7 +5,8 @@
         --image_set 2007_test --dataset_path data/VOCdevkit
 
 config (+ ``--cfg`` overrides) → ``PascalVOC`` (or ``--synthetic``) →
-``TestLoader`` → ``Predictor`` on the checkpoint ``{prefix}-{epoch:04d}
+``TestLoader`` (``--prefetch`` batches ahead on its thread, default 0) →
+``Predictor`` on the checkpoint ``{prefix}-{epoch:04d}
 .npz`` → ``pred_eval`` (host or ``--device-postprocess`` route, serial
 with ``--eval-inflight 0`` or overlapped) → per-class AP and mAP.  Flags
 of the JAX driver whose machinery is not ported raise by name.
@@ -20,8 +21,10 @@ from mx_rcnn_tpu_torch.eval.tester import (INFER_DTYPES, Predictor, pred_eval,
                                            resolve_device)
 from mx_rcnn_tpu_torch.logger import logger, setup_logging
 from mx_rcnn_tpu_torch.models.detector import build_model
-from mx_rcnn_tpu_torch.tools.common import (add_common_args, config_from_args,
-                                            get_imdb, load_eval_params)
+from mx_rcnn_tpu_torch.tools.common import (add_common_args,
+                                            add_prefetch_arg,
+                                            config_from_args, get_imdb,
+                                            load_eval_params)
 
 # flags of the JAX driver whose machinery the port has not ported
 NOT_PORTED = {"vis": "--vis", "calibrate_shard": "--calibrate-shard",
@@ -33,6 +36,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Test a Faster R-CNN "
                                      "network (PyTorch port)")
     add_common_args(parser, train=False)
+    add_prefetch_arg(parser)
     parser.add_argument("--prefix", default="model/e2e",
                         help="checkpoint prefix: {prefix}-{epoch:04d}.npz")
     parser.add_argument("--epoch", type=int, default=10,
@@ -94,7 +98,8 @@ def test_rcnn(args) -> dict:
     roidb = imdb.gt_roidb()
     predictor = Predictor(build_model(cfg), load_eval_params(args), cfg,
                           device=device, dtype=args.infer_dtype)
-    loader = TestLoader(roidb, cfg, batch_size=args.batch_images)
+    loader = TestLoader(roidb, cfg, batch_size=args.batch_images,
+                        prefetch=args.prefetch)
     stats = pred_eval(predictor, loader, imdb, thresh=args.thresh,
                       det_cache=args.dets_cache or None,
                       inflight=args.eval_inflight,

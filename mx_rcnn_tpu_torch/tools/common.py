@@ -6,10 +6,12 @@
 The dataset factory covers PASCAL VOC and the synthetic dataset; COCO
 raises until its reader is ported.  Checkpoints are the port's flat
 ``{prefix}-{epoch:04d}.npz`` (``train/checkpoint.py``), de-normalized, as
-``train_end2end`` writes them.  Not ported among the training flags:
-``--resume``, ``--dist-*``, ``--obs-port``, ``--steps-per-dispatch``,
-``--tuned-pipeline``, ``--replay-*``, ``--prefetch`` and ``--device-prep``
-(ROADMAP.md A.4, A.5.2–A.5.4, A.10).
+``train_end2end`` writes them.  ``--loader-workers`` (every driver) and
+``--prefetch`` (the training drivers, ``test`` and ``tools/test_rpn``)
+set ``tpu.LOADER_WORKERS`` and ``tpu.PREFETCH``.  Not ported among the training flags: ``--resume``,
+``--dist-*``, ``--obs-port``, ``--steps-per-dispatch``,
+``--tuned-pipeline``, ``--replay-*`` and ``--device-prep`` (ROADMAP.md
+A.4, A.5.2–A.5.4, A.10).
 """
 
 from __future__ import annotations
@@ -52,8 +54,17 @@ def add_common_args(parser: argparse.ArgumentParser,
                         help="config override, repeatable: double-underscore "
                              "paths with python-literal values (e.g. --cfg "
                              "tpu__SCALES='((128,192),)')")
+    parser.add_argument("--loader-workers", type=int, default=None,
+                        dest="loader_workers", metavar="N",
+                        help="input-pipeline worker processes "
+                             "(tpu.LOADER_WORKERS, data/workers.py): N > 0 "
+                             "loads records in N processes over a "
+                             "shared-memory ring in /dev/shm, batches "
+                             "bit-identical to the serial producer (0); "
+                             "serving: the request staging pool")
     if not train:
         return parser
+    add_prefetch_arg(parser)
     parser.add_argument("--prefix", default="model/e2e",
                         help="checkpoint prefix: {prefix}-{epoch:04d}.npz")
     parser.add_argument("--device", default=None,
@@ -86,6 +97,15 @@ def add_common_args(parser: argparse.ArgumentParser,
     return parser
 
 
+def add_prefetch_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--prefetch", type=int, default=None,
+                        metavar="DEPTH",
+                        help="batches the loader's prefetch thread keeps "
+                             "ready (tpu.PREFETCH); the default 0 loads on "
+                             "the consuming thread, which measured faster "
+                             "on the card with the numpy PNG decode")
+
+
 def parse_cfg_overrides(items) -> dict:
     """``--cfg PATH=VALUE`` (python literals) → overrides dict."""
     overrides = {}
@@ -98,12 +118,17 @@ def parse_cfg_overrides(items) -> dict:
 
 
 def config_from_args(args, train: bool = True) -> Config:
-    """generate_config + ``--cfg`` overrides, and for training ``--lr``,
-    ``--lr_step``, ``--no_flip`` and ``--no_shuffle``; ``--image_set``
+    """generate_config + ``--cfg`` overrides, ``--loader-workers`` and
+    ``--prefetch``, and for training ``--lr``, ``--lr_step``,
+    ``--no_flip`` and ``--no_shuffle``; ``--image_set``
     lands on IMAGE_SET for training and TEST_IMAGE_SET for evaluation;
     ``--synthetic`` sets ``PIXEL_STDS=127`` (random weights cannot absorb
     the raw 0..255 pixel scale)."""
     overrides = parse_cfg_overrides(args.cfg)
+    if getattr(args, "loader_workers", None) is not None:
+        overrides["tpu__LOADER_WORKERS"] = int(args.loader_workers)
+    if getattr(args, "prefetch", None) is not None:
+        overrides["tpu__PREFETCH"] = int(args.prefetch)
     if train:
         if args.lr is not None:
             overrides["TRAIN__LR"] = args.lr
@@ -189,7 +214,10 @@ def _overlay(params: Params, loaded: Params) -> Params:
 
 
 class CappedLoader:
-    """At most ``n`` batches per epoch of the wrapped loader."""
+    """At most ``n`` batches per epoch of the wrapped loader.  The ``put``
+    hook and ``close_workers`` reach the wrapped loader,
+    and the wrapped epoch is closed where the cap stops it, so that its
+    prefetch thread and worker tickets end with it."""
 
     def __init__(self, inner, n: int):
         self._inner = inner
@@ -200,9 +228,31 @@ class CappedLoader:
     def steps_per_epoch(self) -> int:
         return min(self._n, self._inner.steps_per_epoch)
 
+    @property
+    def put(self):
+        return self._inner.put
+
+    @put.setter
+    def put(self, v):
+        self._inner.put = v
+
+    def close_workers(self):
+        close = getattr(self._inner, "close_workers", None)
+        if close is not None:
+            close()
+
     def __iter__(self):
-        for _, batch in zip(range(self.steps_per_epoch), self._inner):
-            yield batch
+        it = iter(self._inner)
+        try:
+            for _ in range(self.steps_per_epoch):
+                try:
+                    yield next(it)
+                except StopIteration:
+                    return
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
 
 
 def cap_steps(loader, args):

@@ -9,7 +9,9 @@ cpu``.
 The RPN-only test graph (``FasterRCNN.predict_rpn``: the NMS kernels,
 once a batch) over the roidb, one image a batch, through ``Predictor``;
 each record gets its proposals in the original frame, and the list is
-pickled to ``{root_path}/cache/{imdb.name}_rpn_proposals.pkl``.
+pickled to ``{root_path}/cache/{imdb.name}_rpn_proposals.pkl``.  The
+records are read on this thread, or with ``--prefetch`` on the loader's
+prefetch thread.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ from mx_rcnn_tpu_torch.eval.tester import (Predictor, generate_proposals,
                                            resolve_device)
 from mx_rcnn_tpu_torch.logger import logger, setup_logging
 from mx_rcnn_tpu_torch.models.detector import build_model
-from mx_rcnn_tpu_torch.tools.common import (add_common_args, config_from_args,
-                                            get_imdb, load_eval_params)
+from mx_rcnn_tpu_torch.tools.common import (add_common_args,
+                                            add_prefetch_arg,
+                                            config_from_args, get_imdb,
+                                            load_eval_params)
 
 
 def test_rpn(args, cfg=None, params=None, imdb=None, roidb=None) -> list:
@@ -55,6 +59,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Generate RPN proposals "
                                      "(PyTorch port)")
     add_common_args(parser, train=False)
+    add_prefetch_arg(parser)
     parser.add_argument("--prefix", default="model/e2e",
                         help="checkpoint prefix: {prefix}-{epoch:04d}.npz")
     parser.add_argument("--epoch", type=int, default=10,

@@ -10,7 +10,8 @@ card unless given ``--device cpu``.
 it is attached before the flip, which mirrors it.  ``ROIIter`` ships the
 proposals, and ``FasterRCNN.rcnn_train`` samples the RoIs on the device.
 Selective-search proposals are not ported.  With ``--prefix`` every epoch
-writes ``{prefix}-{epoch:04d}.npz``.
+writes ``{prefix}-{epoch:04d}.npz``.  ``--loader-workers`` and
+``--prefetch`` shape the loader; its workers end with the stage.
 """
 
 from __future__ import annotations
@@ -62,10 +63,13 @@ def train_rcnn(args, cfg=None, params=None, roidb=None,
     fixed = (cfg.network.FIXED_PARAMS_SHARED if frozen_shared
              else cfg.network.FIXED_PARAMS)
     logger.info("train_rcnn: %d images, frozen=%s", len(roidb), fixed)
-    return fit(cfg, model, params, loader, begin_epoch=args.begin_epoch,
-               end_epoch=args.end_epoch, prefix=args.prefix, graph="rcnn",
-               seed=args.seed, frequent=args.frequent, device=device,
-               fixed_prefixes=fixed)
+    try:
+        return fit(cfg, model, params, loader, begin_epoch=args.begin_epoch,
+                   end_epoch=args.end_epoch, prefix=args.prefix,
+                   graph="rcnn", seed=args.seed, frequent=args.frequent,
+                   device=device, fixed_prefixes=fixed)
+    finally:
+        loader.close_workers()
 
 
 def parse_args(argv=None):

@@ -8,7 +8,8 @@ cpu``.
 The loader is end2end's ``AnchorLoader``; the graph is
 ``FasterRCNN.rpn_train`` (body, RPN head, the RPN losses; the assign
 kernels when ``tpu.ASSIGN_FUSED``).  With ``--prefix`` every epoch writes
-``{prefix}-{epoch:04d}.npz``.
+``{prefix}-{epoch:04d}.npz``.  ``--loader-workers`` and ``--prefetch``
+shape the loader (``data/loader.py``); its workers end with the stage.
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ def train_rpn(args, cfg=None, params=None, roidb=None,
     fixed = (cfg.network.FIXED_PARAMS_SHARED if frozen_shared
              else cfg.network.FIXED_PARAMS)
     logger.info("train_rpn: %d images, frozen=%s", len(roidb), fixed)
-    return fit(cfg, model, params, loader, begin_epoch=args.begin_epoch,
-               end_epoch=args.end_epoch, prefix=args.prefix, graph="rpn",
-               seed=args.seed, frequent=args.frequent, device=device,
-               fixed_prefixes=fixed)
+    try:
+        return fit(cfg, model, params, loader, begin_epoch=args.begin_epoch,
+                   end_epoch=args.end_epoch, prefix=args.prefix, graph="rpn",
+                   seed=args.seed, frequent=args.frequent, device=device,
+                   fixed_prefixes=fixed)
+    finally:
+        loader.close_workers()
 
 
 def parse_args(argv=None):

@@ -1,9 +1,10 @@
 """The training loop (counterpart of ``mx_rcnn_tpu/train/trainer.py:fit``,
 its core only).
 
-epochs × batches → :func:`batch_put` (to the card, with device prep) →
-the train step → metric fetch at the Speedometer cadence into a
-``MetricBank`` → the epoch line → an epoch checkpoint in the JAX flat
+epochs × batches → :func:`batch_put` (to the card, with device prep; the
+loader's ``put`` hook, run on its prefetch thread) → the train step →
+metric fetch at the Speedometer cadence into a ``MetricBank`` → the epoch
+line → an epoch checkpoint in the JAX flat
 layout with the bbox de-normalisation folded in (``train/checkpoint.py``),
 which ``eval/tester.py:Predictor`` loads as it is.  Not ported: resume and
 auto-resume, step checkpoints, NaN policies, preemption, telemetry,
@@ -32,12 +33,22 @@ from mx_rcnn_tpu_torch.utils.convert_jax import (export_jax_params,
                                                  load_jax_params)
 
 
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: bound for the card, through pinned
+    memory with a non-blocking copy on the thread's current stream (a copy
+    from pageable memory would wait for the step queued before it)."""
+    t = torch.as_tensor(np.asarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def batch_put(batch: Dict[str, np.ndarray], cfg: Config,
               device: torch.device) -> Dict[str, torch.Tensor]:
     """An ``AnchorLoader`` or ``ROIIter`` batch → device tensors, the staged raw pixels
     resampled, mirrored where ``flip``, normalised and regrouped on the
     device (the JAX package's ``DevicePrep.put``)."""
-    t = {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+    t = {k: _to_device(v, device) for k, v in batch.items()}
     net = cfg.network
     t["images"] = prep_images(t["images"], t.pop("raw_hw"), t.pop("prep_ratio"),
                               t["im_info"], pixel_means=net.PIXEL_MEANS,
@@ -66,8 +77,17 @@ def fit(cfg: Config, model, params, train_loader, *, begin_epoch: int = 0,
     With ``prefix``, epoch ``e`` ends with ``{prefix}-{e + 1:04d}.npz``.
     The sampling uniforms come from one ``torch.Generator`` seeded with
     ``seed`` on the device.
+
+    ``fit`` owns the loader's ``put`` hook, which every loader has (the
+    ``AnchorLoader`` contract): it is set to :func:`batch_put` for this
+    ``cfg`` and ``device``, so that each batch is copied and prepped on
+    the prefetch thread while the previous step runs (on this thread at
+    ``tpu.PREFETCH`` 0).
     """
     device = resolve_device(device)
+    if not hasattr(train_loader, "put"):
+        raise TypeError(f"fit: {type(train_loader).__name__} has no put "
+                        f"hook (the AnchorLoader contract)")
     if device.type == "cuda" and cfg.tpu.COMPUTE_DTYPE == "float32":
         # cuDNN would otherwise run float32 convolutions in TF32
         torch.backends.cudnn.allow_tf32 = False
@@ -82,6 +102,7 @@ def fit(cfg: Config, model, params, train_loader, *, begin_epoch: int = 0,
     generator = torch.Generator(device=device).manual_seed(seed)
     speedo = Speedometer(train_loader.batch_size, frequent=frequent)
     bank = MetricBank()
+    train_loader.put = lambda b: batch_put(b, cfg, device)
 
     def fetch(epoch, cur, pending):
         fetched = {k: float(v) for k, v in pending.items()}
@@ -94,9 +115,8 @@ def fit(cfg: Config, model, params, train_loader, *, begin_epoch: int = 0,
         speedo.reset()
         ep_t0 = time.perf_counter()
         pending, consumed, last_fetch = None, 0, 0
-        for batch in train_loader:
-            state, pending = step_fn(state, batch_put(batch, cfg, device),
-                                     generator=generator)
+        for batch in train_loader:  # on the device: the put hook ran
+            state, pending = step_fn(state, batch, generator=generator)
             cur = consumed + 1
             if cur - last_fetch >= frequent:
                 fetch(epoch, cur, pending)

@@ -18,7 +18,8 @@ card unless given ``--device cpu``.
    head.
 
 The stages run in one process and hand each other their weights, as the
-JAX driver does; they write no checkpoints (``--rpn_epochs`` and
+JAX driver does; ``--loader-workers`` and ``--prefetch`` reach every
+stage's loader through the config; they write no checkpoints (``--rpn_epochs`` and
 ``--rcnn_epochs`` set their lengths, default ``--end_epoch``).  The final
 model is saved de-normalised as the port's flat ``{prefix}-{end_epoch:04d}
 .npz``, which ``python -m mx_rcnn_tpu_torch.test --epoch end_epoch`` loads;

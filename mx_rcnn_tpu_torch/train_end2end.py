@@ -6,7 +6,8 @@
         --dataset_path data/VOCdevkit --pretrained model/resnet101.npz
 
 generate_config (+ ``--cfg PATH=VALUE`` overrides, ``--lr``,
-``--lr_step``, ``--no_flip``, ``--no_shuffle``) → the dataset
+``--lr_step``, ``--no_flip``, ``--no_shuffle``, ``--loader-workers``,
+``--prefetch``) → the dataset
 (``tools/common.py:get_imdb``: PASCAL VOC read from disk, or the synthetic
 imdb with ``--synthetic``) → flip → filter → ``AnchorLoader`` of
 ``--batch_images`` (default ``TRAIN.BATCH_IMAGES``) → seeded random
@@ -53,9 +54,12 @@ def train_net(args):
                 len(roidb), loader.steps_per_epoch, batch_size, device)
     model = build_model(cfg)
     params = init_or_load_params(args, model)
-    return fit(cfg, model, params, loader, begin_epoch=args.begin_epoch,
-               end_epoch=args.end_epoch, prefix=args.prefix, seed=args.seed,
-               frequent=args.frequent, device=device)
+    try:
+        return fit(cfg, model, params, loader, begin_epoch=args.begin_epoch,
+                   end_epoch=args.end_epoch, prefix=args.prefix,
+                   seed=args.seed, frequent=args.frequent, device=device)
+    finally:
+        loader.close_workers()
 
 
 if __name__ == "__main__":

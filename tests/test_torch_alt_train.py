@@ -273,6 +273,9 @@ def test_config_from_args_matches_jax(flags):
     argv = ["--network", "resnet50", "--synthetic"] + flags
     got = common.config_from_args(train_end2end.parse_args(argv), train=True)
     want = j_common.config_from_args(jax_args(argv), train=True)
+    # the one default the port sets apart on purpose (config.py: PREFETCH)
+    assert got.tpu.PREFETCH == 0 and want.tpu.PREFETCH == 2
+    want = want.replace(tpu=dataclasses.replace(want.tpu, PREFETCH=0))
     for section in ("TRAIN", "TEST", "network", "tpu", "dataset"):
         assert (dataclasses.asdict(getattr(got, section))
                 == dataclasses.asdict(getattr(want, section))), section

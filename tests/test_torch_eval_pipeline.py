@@ -63,8 +63,13 @@ class StubLoader:
 
     def __init__(self, n, bs):
         self.n, self.bs = n, bs
+        self.put = None  # the loader contract: pred_eval sets it
 
     def __iter__(self):
+        for batch in self._produce():
+            yield batch if self.put is None else self.put(batch)
+
+    def _produce(self):
         for s in range(0, self.n, self.bs):
             idx = list(range(s, min(s + self.bs, self.n)))
             pad = self.bs - len(idx)

@@ -38,7 +38,8 @@ def port_modules():
 def test_imports_with_jax_and_the_jax_package_blocked():
     mods = port_modules()
     for mod in ("kernels.nms_cuda", "kernels.assign_cuda", "ops.assign_anchor",
-                "ops.sample_rois", "data.loader", "train.trainer",
+                "ops.sample_rois", "data.loader", "data.workers",
+                "train.trainer",
                 "train_end2end", "data.pascal_voc", "eval.voc_eval",
                 "eval.pipeline", "tools.common", "tools.reeval", "test",
                 "telemetry", "telemetry.sink", "telemetry.tracectx",

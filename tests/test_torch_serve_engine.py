@@ -169,8 +169,8 @@ def test_submit_rejects_bad_images_and_unported_options():
     with pytest.raises(ValueError, match="uint8"):
         engine.submit(np.zeros((4, 4, 3), np.float32))
     engine.stop()
-    with pytest.raises(NotImplementedError, match="prep worker pool"):
-        ServeOptions(prep_workers=2)
+    with pytest.raises(ValueError, match="prep_workers"):
+        ServeOptions(prep_workers=-1)
     with pytest.raises(ValueError, match="max_queue"):
         ServeOptions(batch_size=4, max_queue=2)
 
