@@ -136,7 +136,27 @@ Phases, each printing its own lines:
    ``serve/host_prep`` p50/p99 beside the caller-thread figures of phase 7,
    and after ``stop()`` no worker alive and the ring gone from
    ``/dev/shm``, whose size is printed with the ring's bytes.
-10. One ``{"kernels": [...]}`` JSON line, then the last line
+10. Training that survives a real run (``resilience_slice``), at the
+   training slice's width from its checkpoint: ``python -m
+   mx_rcnn_tpu_torch.train_end2end``'s inputs, ``RES_IMAGES`` synthetic
+   images (one epoch of ``RES_STEPS`` steps at ``BATCH``).  ``fit`` with
+   a step checkpoint every ``RES_SAVE_EVERY`` steps under ``--nan-policy
+   skip``, twice: the largest difference between the two is the bound
+   every resumed run is held to (0: bitwise).  SIGTERM from the batch
+   callback after ``RES_PREEMPT_AT`` steps: a clean return with a step
+   checkpoint, then ``auto_resume`` to the reference's state, the four
+   kernels once a step of each run.  The driver as a process, SIGTERM once
+   its first step checkpoint appears: exit 0, and rerun, the reference's
+   epoch file.  ``MXR_FAULT_NAN_STEP`` under ``skip`` (parameters and
+   momentum bitwise through the poisoned step), ``halt`` (raises, dumps)
+   and ``rollback`` (restores, goes on finite).  One step's synchronising
+   calls with the sentinel off, on and under ``skip`` (equal) and each
+   one's median step wall.  A torchvision ``resnet101`` state_dict of
+   seeded random tensors through ``utils/convert_torch.py`` and
+   ``--pretrained``: every backbone and ``head_body`` leaf laid over, a
+   ``Predictor`` on it detects.  The step checkpoint's bytes and its save
+   and load times are printed.
+11. One ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
@@ -256,6 +276,21 @@ PIPE_PREFETCH = (0, 2)
 PIPE_EVAL_SPLIT = "pipe"
 PIPE_EVAL_IMAGES = 48
 PIPE_REQUESTS = SERVE_REQUESTS
+# the resilience slice: the synthetic images of one epoch of RES_STEPS
+# steps at BATCH (flipped), a step checkpoint every RES_SAVE_EVERY steps,
+# the SIGTERM after RES_PREEMPT_AT steps, NaN images at consumed batch
+# RES_NAN_AT, the step wall over 2 × RES_TIMED_STEPS steps a variant
+RES_IMAGES = 6
+RES_STEPS = 6
+RES_SAVE_EVERY = 2
+RES_PREEMPT_AT = 3
+RES_NAN_AT = 3
+RES_TIMED_STEPS = 15
+RES_FLAGS = ["--network", "resnet101", "--dataset", "PascalVOC",
+             "--synthetic", "--synthetic_images", str(RES_IMAGES),
+             "--batch_images", str(BATCH), "--cfg", "tpu__ASSIGN_FUSED=True",
+             "--end_epoch", "1", "--frequent", "1"]
+RES_PROC_TIMEOUT_S = 600
 
 
 def log(phase: str, **kw) -> None:
@@ -2386,6 +2421,567 @@ def pipeline_slice(P, tcfg, prefix: str, epoch: int, work: str, seed: int,
     return {"rates": rates, "eval": evals, "serve": served}
 
 
+# ---- the resilience slice ----------------------------------------------------
+
+def state_arrays(P, st) -> tuple:
+    """A ``TrainState``'s parameters and momentum, host arrays by JAX key."""
+    return (P.export_jax_params(st.model),
+            P.export_momentum(st.model, st.optimizer))
+
+
+def max_abs_diff(got, want) -> float:
+    """The largest absolute difference over dicts of arrays with the same
+    keys (inf where the keys differ)."""
+    diff = 0.0
+    for g, w in zip(got, want):
+        if g.keys() != w.keys():
+            return float("inf")
+        for k in w:
+            diff = max(diff, float(np.max(np.abs(
+                g[k].astype(np.float64) - w[k].astype(np.float64)))))
+    return diff
+
+
+def torchvision_resnet_state_dict(units, seed: int) -> dict:
+    """A torchvision ResNet's state_dict names and shapes (``units``
+    bottleneck blocks a stage: ``resnet101``'s are (3, 4, 23, 3)), seeded
+    random values drawn so that the random network stays finite: He-normal
+    convolutions, the last batch norm of each block near 0 (its branch
+    small beside the shortcut), running variances in [0.5, 1.5]."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[name] = torch.randn(o, i, k, k, generator=gen) * (2.0 / (i * k * k)) ** 0.5
+
+    def bn(name, c, scale=1.0):
+        sd[name + ".weight"] = torch.rand(c, generator=gen) * scale
+        sd[name + ".bias"] = torch.randn(c, generator=gen) * 0.05
+        sd[name + ".running_mean"] = torch.randn(c, generator=gen) * 0.05
+        sd[name + ".running_var"] = torch.rand(c, generator=gen) + 0.5
+        sd[name + ".num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    in_ch = 64
+    for li, (n, w) in enumerate(zip(units, (64, 128, 256, 512)), start=1):
+        for u in range(n):
+            p = f"layer{li}.{u}"
+            c_in = in_ch if u == 0 else w * 4
+            conv(p + ".conv1.weight", w, c_in, 1)
+            bn(p + ".bn1", w)
+            conv(p + ".conv2.weight", w, w, 3)
+            bn(p + ".bn2", w)
+            conv(p + ".conv3.weight", w * 4, w, 1)
+            bn(p + ".bn3", w * 4, scale=0.1)
+            if u == 0:
+                conv(p + ".downsample.0.weight", w * 4, c_in, 1)
+                bn(p + ".downsample.1", w * 4)
+        in_ch = w * 4
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=gen) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def sentinel_cases(P, dev) -> dict:
+    """The step's all-finite flag on ``dev`` for gradient leaves of the
+    sizes of ResNet-101's (one of 2.4 M elements) with one element, in
+    the middle of the large leaf, set to NaN, ±inf or 3e38, and for a NaN
+    loss; fails unless only the finite cases pass."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = ((512, 512, 3, 3), (2048,), (84, 2048))
+    cases = {}
+    for name, value in (("finite", None), ("nan", float("nan")),
+                        ("inf", float("inf")), ("-inf", -float("inf")),
+                        ("huge", 3.0e38), ("nan_loss", None)):
+        grads = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+        total = torch.tensor(float("nan") if name == "nan_loss" else 1.5,
+                             device=dev)
+        if value is not None:
+            grads[0].view(-1)[grads[0].numel() // 2 + 7] = value
+        cases[name] = bool(P._all_finite(total, grads))
+    want = {k: k in ("finite", "huge") for k in cases}
+    if cases != want:
+        fail(f"resilience: the all-finite flag on {dev}: {cases}, "
+             f"expected {want}")
+    return cases
+
+
+def sentinel_profile(fns, state, batch, gen, sync, on_card) -> dict:
+    """One step of each variant under ``torch.profiler``: per operator,
+    the calls, host (self CPU) and device (self CUDA) milliseconds; for
+    ``on`` and ``skip`` the operators whose call count differs from
+    ``off``'s (what the sentinel and the guard add), and each variant's
+    totals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    tables = {}
+    for name in ("off", "on", "skip"):
+        sync()
+        with profile(activities=acts) as prof:
+            fns[name](state, batch, generator=gen)
+            sync()
+        table = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            table[ev.key] = (ev.count, ev.self_cpu_time_total / 1e3,
+                             dev_us / 1e3)
+        tables[name] = table
+    out = {"totals": {k: {"calls": sum(c for c, _, _ in t.values()),
+                          "host_ms": sum(h for _, h, _ in t.values()),
+                          "device_ms": sum(d for _, _, d in t.values())}
+                      for k, t in tables.items()}}
+    base = tables["off"]
+    for name in ("on", "skip"):
+        added = {}
+        for op, (c, h, d) in tables[name].items():
+            c0, h0, d0 = base.get(op, (0, 0.0, 0.0))
+            if c != c0:
+                added[op] = {"calls": c - c0, "host_ms": h - h0,
+                             "device_ms": d - d0}
+        out[f"added_{name}"] = dict(sorted(
+            added.items(), key=lambda kv: -kv[1]["host_ms"]))
+    return out
+
+
+def resilience_slice(P, pretrained: str, work: str, seed: int, smi: str,
+                     device=None, flags=RES_FLAGS) -> dict:
+    """Training that survives a real run, at the training slice's width:
+    ``python -m mx_rcnn_tpu_torch.train_end2end``'s inputs (``flags``, the
+    synthetic set of ``RES_IMAGES`` images, ``--pretrained`` the training
+    slice's checkpoint), one epoch of ``RES_STEPS`` steps.
+
+    * The reference: ``fit`` with a step checkpoint every
+      ``RES_SAVE_EVERY`` steps under ``skip``, run twice; the largest
+      difference between the two runs' parameters and momentum is the
+      bound every resumed run is held to (0: bitwise).
+    * Preemption in process: the same run with SIGTERM raised from
+      ``batch_end_callback`` after ``RES_PREEMPT_AT`` steps returns with a
+      step checkpoint and no epoch file; ``fit(auto_resume)`` finishes the
+      epoch, the four kernels launching once a step it runs, and ends at
+      the reference's state.
+    * Preemption as a process: the driver with ``--save-every-n-steps
+      --auto-resume --nan-policy skip`` gets SIGTERM once its first step
+      checkpoint appears and exits 0 without an epoch file; run again, it
+      writes the reference's epoch file.
+    * ``MXR_FAULT_NAN_STEP``: under ``skip`` the poisoned step leaves the
+      parameters and momentum bitwise and counts ``train/nan_skipped``;
+      ``halt`` raises ``NonFiniteLossError`` and dumps; ``rollback``
+      restores the step checkpoint and goes on finite.
+    * The sentinel's flag on card tensors: a NaN, an infinity or a huge
+      finite value in the middle of a large gradient leaf, or a NaN loss.
+    * One step's dispatch with the sentinel off, on, and on under
+      ``skip``: the synchronising CUDA calls of each (equal), the step
+      wall of each (median and spread), and one profiled step of each:
+      the operators whose launches the sentinel and the guard add, with
+      their host and device time.
+    * The converter: a torchvision state_dict of the network (``resnet101``)
+      of seeded random tensors through ``convert_file``, then
+      ``--pretrained``:
+      every ``backbone`` and ``head_body`` leaf laid over, and a
+      ``Predictor`` on the result detects.
+    """
+    tstart = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # a fresh process's TF32 settings (torch's defaults; earlier phases
+    # turned cuDNN's off), so that the driver run as a process below
+    # computes as the runs in this one do
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _resilience_runs(P, pretrained, work, seed, smi, dev, on_card,
+                                sync, flags, tstart)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _resilience_runs(P, pretrained, work, seed, smi, dev, on_card, sync,
+                     flags, tstart) -> dict:
+    """The body of :func:`resilience_slice`."""
+    import signal
+    import warnings
+
+    base = flags + ["--pretrained", pretrained, "--seed", str(seed)] + (
+        [] if on_card else ["--device", "cpu"])
+    args = P.train_end2end.parse_args(base)
+    cfg = P.config_from_args(args, train=True)
+    roidb = P.get_train_roidb(P.get_imdb(args, cfg), cfg)
+    model = P.build_model(cfg)
+    params = P.init_or_load_params(args, model)
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep,
+                "assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+    skip = P.ResilienceOptions(save_every_n_steps=RES_SAVE_EVERY,
+                               nan_policy="skip")
+    tel = P.telemetry.configure(os.path.join(work, "res_tel"), stream=False)
+
+    def new_loader(cap=None):
+        # the driver's loader (train_end2end.train_net)
+        ld = P.AnchorLoader(roidb, cfg, BATCH, shuffle=cfg.TRAIN.SHUFFLE)
+        return ld if cap is None else P.CappedLoader(ld, cap)
+
+    def run(prefix, res, cb=None, loader=None):
+        seen = []
+
+        def on_step(e, s, m):
+            seen.append(m)
+            if cb is not None:
+                cb(e, s, m)
+
+        sync()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        st = P.fit(cfg, model, params, loader or new_loader(),
+                   end_epoch=args.end_epoch, prefix=prefix, seed=args.seed,
+                   frequent=args.frequent, device=dev,
+                   batch_end_callback=on_step, resilience=res)
+        sync()
+        return {"state": st, "seen": seen,
+                "wall_s": time.perf_counter() - t0,
+                "launches": {k: f.launches for k, f in counters.items()}}
+
+    def launches_once_a_step(r, steps, what):
+        for name, count in r["launches"].items():
+            if count != steps:
+                fail(f"resilience [{what}]: {name} launched {count} times "
+                     f"in {steps} steps")
+
+    # ---- the reference, twice ----
+    ref_prefix = os.path.join(work, "res_ref", "e2e")
+    ref = run(ref_prefix, skip)
+    if len(ref["seen"]) != RES_STEPS or ref["state"].step != RES_STEPS:
+        fail(f"resilience reference: {len(ref['seen'])} steps fetched of "
+             f"{RES_STEPS}")
+    launches_once_a_step(ref, RES_STEPS, "reference")
+    if not all(m["all_finite"] == 1.0 and np.isfinite(list(m.values())).all()
+               for m in ref["seen"]):
+        fail(f"resilience reference: non-finite metrics {ref['seen']}")
+    want = state_arrays(P, ref["state"])
+    ref_epoch = P.load_params_npz(P.epoch_path(ref_prefix, 1))
+    again = run(None, skip)
+    bound = max_abs_diff(state_arrays(P, again["state"]), want)
+    del again
+
+    def within(diff, what):
+        if not diff <= bound:
+            fail(f"resilience [{what}]: differs from the reference by "
+                 f"{diff}, beyond the two references' {bound}")
+
+    # ---- preemption in process ----
+    pre_prefix = os.path.join(work, "res_pre", "e2e")
+    handler = signal.getsignal(signal.SIGTERM)
+
+    def preempt(e, s, m):
+        if s == RES_PREEMPT_AT:
+            signal.raise_signal(signal.SIGTERM)
+
+    pre = run(pre_prefix, skip, cb=preempt)
+    mgr = P.CheckpointManager(pre_prefix)
+    point = mgr.latest_resume_point()
+    stopped = pre["state"].step
+    if stopped not in (RES_PREEMPT_AT, RES_PREEMPT_AT + 1) or \
+            point != ("step", 0, stopped) or mgr.available_epochs():
+        fail(f"resilience preemption: stopped at step {stopped}, resume "
+             f"point {point}, epochs {mgr.available_epochs()}")
+    if signal.getsignal(signal.SIGTERM) is not handler:
+        fail("resilience preemption: fit left its SIGTERM handler")
+    launches_once_a_step(pre, stopped, "preempted")
+    step_file = mgr._step_path(P.encode_step_key(0, stopped))
+    ckpt_bytes = os.path.getsize(step_file)
+    sync()
+    t0 = time.perf_counter()
+    mgr.load_step_checkpoint(0, stopped)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    resumed = run(pre_prefix, dataclasses.replace(skip, auto_resume=True))
+    ran = len(resumed["seen"])
+    if ran != RES_STEPS - stopped or resumed["state"].step != RES_STEPS:
+        fail(f"resilience resume: ran {ran} steps from {stopped}")
+    launches_once_a_step(resumed, ran, "resumed")
+    inproc_diff = max_abs_diff(state_arrays(P, resumed["state"]), want)
+    within(inproc_diff, "in-process resume")
+    save_span = tel.summary()["spans"].get("checkpoint/step_save", {})
+    log("resilience_resume", seconds=time.perf_counter() - tstart,
+        repeat_max_abs_diff=bound,
+        reference_launches=ref["launches"], preempted_at=stopped,
+        preempted_launches=pre["launches"], resumed_steps=ran,
+        resumed_launches=resumed["launches"],
+        inprocess_max_abs_diff=inproc_diff, step_ckpt_bytes=ckpt_bytes,
+        step_save_ms=(save_span["total_s"] / save_span["count"] * 1e3
+                      if save_span else None), step_load_ms=load_ms,
+        walls_s={"reference": ref["wall_s"], "preempted": pre["wall_s"],
+                 "resumed": resumed["wall_s"]})
+    del pre, resumed
+
+    # ---- preemption as a process ----
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    proc_prefix = os.path.join(work, "res_proc", "e2e")
+    cmd = [sys.executable, "-m", "mx_rcnn_tpu_torch.train_end2end"] + base + [
+        "--prefix", proc_prefix, "--save-every-n-steps", str(RES_SAVE_EVERY),
+        "--auto-resume", "--nan-policy", "skip"]
+    steps_dir = proc_prefix + "-steps"
+    procs = {}
+    for name in ("preempted", "finished"):
+        log_path = os.path.join(work, f"res_proc_{name}.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log_f:
+            proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=log_f,
+                                    stderr=subprocess.STDOUT)
+            try:
+                if name == "preempted":
+                    while not (os.path.isdir(steps_dir) and any(
+                            n.endswith(".npz") for n in os.listdir(steps_dir))):
+                        if proc.poll() is not None or \
+                                time.perf_counter() - t0 > RES_PROC_TIMEOUT_S:
+                            break
+                        time.sleep(0.01)
+                    proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=RES_PROC_TIMEOUT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(log_path) as f:
+            text = f.read()
+        tail = text[-3000:]
+        # the driver's own log lines, time-stamped: where its wall went
+        marks = [line[11:23] + " " + line.split(": ", 1)[-1][:48]
+                 for line in text.splitlines() if " INFO " in line]
+        procs[name] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                       "resume_point": P.CheckpointManager(
+                           proc_prefix).latest_resume_point(),
+                       "log_marks": marks[:3] + marks[-6:]}
+        if rc != 0:
+            fail(f"resilience process [{name}]: exit code {rc}\n{tail}")
+        has_epoch = os.path.exists(P.epoch_path(proc_prefix, 1))
+        if name == "preempted" and (has_epoch or "preemption requested"
+                                    not in tail):
+            fail(f"resilience process: the run was not preempted "
+                 f"(epoch file {has_epoch})\n{tail}")
+    proc_epoch = P.load_params_npz(P.epoch_path(proc_prefix, 1))
+    proc_diff = max_abs_diff((proc_epoch,), (ref_epoch,))
+    log("resilience_process", seconds=time.perf_counter() - tstart,
+        process=procs, process_max_abs_diff=proc_diff)
+    within(proc_diff, "process resume")
+    for d in (ref_prefix, pre_prefix, proc_prefix):  # ~380 MB a checkpoint
+        shutil.rmtree(os.path.dirname(d), ignore_errors=True)
+
+    # ---- the NaN policies (MXR_FAULT_NAN_STEP) ----
+    env_key = P.resilience.ENV_NAN_STEP
+    os.environ[env_key] = str(RES_NAN_AT)
+    guarded = {}
+    real_make = P.trainer.make_train_step
+
+    def make(*a, **kw):
+        fn = real_make(*a, **kw)
+        calls = [0]
+
+        def step(state, batch, **k):
+            i = calls[0]
+            calls[0] += 1
+            if i != RES_NAN_AT:
+                return fn(state, batch, **k)
+            before = [t.detach().clone() for t in state.model.parameters()]
+            bufs = [state.optimizer.state[p].get("momentum_buffer")
+                    for g in state.optimizer.param_groups for p in g["params"]]
+            before_m = [b.clone() for b in bufs if b is not None]
+            out = fn(state, batch, **k)
+            after_m = [state.optimizer.state[p].get("momentum_buffer")
+                       for g in state.optimizer.param_groups
+                       for p in g["params"]]
+            guarded["params_kept"] = all(
+                torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                                  before))
+            guarded["momentum_kept"] = len(before_m) == len(after_m) and all(
+                torch.equal(a, b) for a, b in zip(after_m, before_m))
+            guarded["momentum_leaves"] = len(before_m)
+            return out
+
+        return step
+
+    nan = {}
+    try:
+        P.trainer.make_train_step = make
+        c0 = dict(tel.summary()["counters"])
+        r = run(None, P.ResilienceOptions(nan_policy="skip"),
+                loader=new_loader(RES_NAN_AT + 2))
+        c1 = tel.summary()["counters"]
+        flags_seen = [m["all_finite"] for m in r["seen"]]
+        skipped = c1.get("train/nan_skipped", 0) - c0.get("train/nan_skipped",
+                                                          0)
+        if not (guarded.get("params_kept") and guarded.get("momentum_kept")) \
+                or skipped != 1 or flags_seen != [1.0] * RES_NAN_AT + [
+                    0.0, 1.0]:
+            fail(f"resilience skip: {guarded}, nan_skipped {skipped}, "
+                 f"all_finite {flags_seen}")
+        launches_once_a_step(r, RES_NAN_AT + 2, "skip")
+        nan["skip"] = dict(guarded, all_finite=flags_seen)
+        P.trainer.make_train_step = real_make
+
+        try:
+            run(os.path.join(work, "res_halt", "e2e"),
+                P.ResilienceOptions(nan_policy="halt"),
+                loader=new_loader(RES_NAN_AT + 2))
+            fail("resilience halt: no NonFiniteLossError")
+        except P.NonFiniteLossError as e:
+            dump = os.path.join(tel.out_dir,
+                                f"nan_dump_e0_b{RES_NAN_AT + 1}.json")
+            if not os.path.exists(dump):
+                fail(f"resilience halt: no dump at {dump} ({e})")
+            nan["halt"] = {"raised": str(e).split(";")[0], "dump": True}
+
+        c0 = dict(tel.summary()["counters"])
+        r = run(os.path.join(work, "res_rb", "e2e"),
+                P.ResilienceOptions(save_every_n_steps=RES_SAVE_EVERY,
+                                    nan_policy="rollback"),
+                loader=new_loader(RES_NAN_AT + 2))
+        c1 = tel.summary()["counters"]
+        rolled = c1.get("train/nan_rollback", 0) - c0.get(
+            "train/nan_rollback", 0)
+        flags_seen = [m["all_finite"] for m in r["seen"]]
+        final = P.export_jax_params(r["state"].model)
+        if rolled != 1 or flags_seen[-1] != 1.0 or not all(
+                np.isfinite(v).all() for v in final.values()):
+            fail(f"resilience rollback: nan_rollback {rolled}, all_finite "
+                 f"{flags_seen}")
+        nan["rollback"] = {"rolled_back": rolled, "all_finite": flags_seen,
+                           "step": r["state"].step}
+        log("resilience_nan", seconds=time.perf_counter() - tstart, **nan)
+        del r, final
+    finally:
+        P.trainer.make_train_step = real_make
+        os.environ.pop(env_key, None)
+
+    # ---- the sentinel's flag on card tensors ----
+    finite_cases = sentinel_cases(P, dev)
+    log("resilience_sentinel", seconds=time.perf_counter() - tstart,
+        cases=finite_cases)
+
+    # ---- the sentinel's cost: synchronising calls and step wall ----
+    ld = new_loader()
+    ld.put = lambda b: P.batch_put(b, cfg, dev)
+    it = iter(ld)
+    batch = next(it)
+    it.close()
+    P.load_jax_params(model, params)
+    model.to(dev)
+    state = P.create_train_state(cfg, model, ld.steps_per_epoch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fns = {"off": P.make_train_step(cfg),
+           "on": P.make_train_step(cfg, sentinel=True),
+           "skip": P.make_train_step(cfg, sentinel=True, skip_nonfinite=True)}
+
+    def sync_sites(fn) -> list:
+        """The synchronising CUDA calls of one dispatch of ``fn``, each as
+        the source line that made it."""
+        sync()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if on_card:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(state, batch, generator=gen)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(0)
+        sync()
+        return sorted(f"{os.path.relpath(w.filename, repo)}:{w.lineno}"
+                      for w in caught
+                      if "synchroniz" in str(w.message).lower()
+                      and "prototype feature" not in str(w.message))
+
+    for fn in fns.values():
+        fn(state, batch, generator=gen)  # warm-up
+    sites = {k: [] for k in fns}
+    for name in ("off", "on", "skip", "skip", "on", "off"):
+        sites[name].append(sync_sites(fns[name]))
+    syncs = {k: [len(x) for x in v] for k, v in sites.items()}
+    where = {k: sorted({x for call in v for x in call})
+             for k, v in sites.items()}
+    log("resilience_sync", seconds=time.perf_counter() - tstart,
+        sync_calls=syncs, sites=where)
+    if len({n for v in syncs.values() for n in v}) != 1:
+        fail(f"resilience: the sentinel changes the synchronising calls of "
+             f"a step's dispatch: {syncs} at {where}")
+    walls = {k: [] for k in fns}
+    for name in ("off", "on", "skip", "skip", "on", "off"):
+        for _ in range(RES_TIMED_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            fns[name](state, batch, generator=gen)
+            sync()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    step_ms = {k: statistics.median(v) for k, v in walls.items()}
+    spread = {k: {"min": min(v), "p10": float(np.percentile(v, 10)),
+                  "p90": float(np.percentile(v, 90)), "max": max(v),
+                  "stdev": statistics.stdev(v), "n": len(v)}
+              for k, v in walls.items()}
+    log("resilience_step_wall", seconds=time.perf_counter() - tstart,
+        median_ms=step_ms, spread_ms=spread)
+    profile = sentinel_profile(fns, state, batch, gen, sync, on_card)
+    log("resilience_profile", seconds=time.perf_counter() - tstart,
+        **profile)
+    del state, batch
+
+    # ---- the converter and --pretrained ----
+    net = cfg.network.NETWORK
+    pth = os.path.join(work, f"{net}_torchvision.pth")
+    torch.save(torchvision_resnet_state_dict(
+        P.convert_torch.RESNET_UNITS[net], seed), pth)
+    npz = os.path.join(work, f"{net}_torchvision.npz")
+    P.convert_torch.convert_file(pth, net, npz)
+    converted = P.load_params_npz(npz)
+    conv_args = P.train_end2end.parse_args(
+        flags + ["--pretrained", npz, "--seed", str(seed)])
+    laid = P.init_or_load_params(conv_args, model)
+    body = [k for k in P.param_shapes(model)
+            if k.startswith(("backbone/", "head_body/"))]
+    overlaid = sum(1 for k in body if k in converted
+                   and np.array_equal(laid[k], converted[k]))
+    if overlaid != len(body):
+        fail(f"converter: {overlaid} of {len(body)} backbone/head_body "
+             f"leaves laid over")
+    predictor = P.tester.Predictor(P.build_model(cfg), laid, cfg,
+                                   device=dev)
+    port = (P.image_mod, P.tester, P.post)
+    records, _ = run_slice(port, predictor, cfg,
+                           [r["image_array"] for r in roidb[:BATCH]], BATCH)
+    if not any(records):
+        fail("converter: the Predictor on the converted weights detects "
+             "nothing")
+    P.telemetry.shutdown()
+    out = {"card": smi, "network": cfg.network.NETWORK,
+           "steps": RES_STEPS, "save_every": RES_SAVE_EVERY,
+           "reference_launches": ref["launches"],
+           "repeat_max_abs_diff": bound, "bitwise_repeatable": bound == 0.0,
+           "preempted_at": stopped, "resumed_steps": ran,
+           "inprocess_max_abs_diff": inproc_diff,
+           "process": procs, "process_max_abs_diff": proc_diff,
+           "step_ckpt_bytes": ckpt_bytes,
+           "step_save_ms": (save_span["total_s"] / save_span["count"] * 1e3
+                            if save_span else None),
+           "step_load_ms": load_ms, "nan": nan,
+           "sentinel_cases": finite_cases,
+           "sync_calls": syncs, "sync_sites": where, "step_wall_ms": step_ms,
+           "step_wall_spread_ms": spread, "profile": profile,
+           "converter_overlaid": overlaid,
+           "converter_records_per_image": [len(x) for x in records],
+           "seconds": time.perf_counter() - tstart}
+    log("resilience", **out)
+    return out
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -2421,14 +3017,26 @@ def import_port() -> types.SimpleNamespace:
                                                 config_from_args,
                                                 get_train_roidb,
                                                 load_eval_params)
-    from mx_rcnn_tpu_torch.train.checkpoint import (denormalize_for_save,
+    from mx_rcnn_tpu_torch import train_end2end
+    from mx_rcnn_tpu_torch.tools.common import get_imdb, init_or_load_params
+    from mx_rcnn_tpu_torch.train import resilience, trainer
+    from mx_rcnn_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                    denormalize_for_save,
                                                     epoch_path,
                                                     load_params_npz,
                                                     save_params_npz)
-    from mx_rcnn_tpu_torch.train.train_step import make_train_step
-    from mx_rcnn_tpu_torch.train.trainer import fit
+    from mx_rcnn_tpu_torch.train.optim import export_momentum
+    from mx_rcnn_tpu_torch.train.resilience import (NonFiniteLossError,
+                                                    ResilienceOptions,
+                                                    encode_step_key)
+    from mx_rcnn_tpu_torch.train.train_step import (_all_finite,
+                                                    create_train_state,
+                                                    make_train_step)
+    from mx_rcnn_tpu_torch.train.trainer import batch_put, fit
+    from mx_rcnn_tpu_torch.utils import convert_torch
     from mx_rcnn_tpu_torch.utils.convert_jax import (export_jax_params,
                                                      load_jax_params,
+                                                     param_shapes,
                                                      random_params)
 
     return types.SimpleNamespace(**locals())
@@ -2625,6 +3233,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         pipeline_slice(P, tcfg, prefix, epoch, work, args.seed, served,
                        device=dev)
+
+        # ---- 10. resilience at full width -------------------------------------
+        torch.cuda.empty_cache()
+        resilience_slice(P, P.epoch_path(prefix, epoch), work, args.seed, smi)
     log("total", seconds=time.perf_counter() - t_start)
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

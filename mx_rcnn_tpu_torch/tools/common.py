@@ -8,10 +8,12 @@ raises until its reader is ported.  Checkpoints are the port's flat
 ``{prefix}-{epoch:04d}.npz`` (``train/checkpoint.py``), de-normalized, as
 ``train_end2end`` writes them.  ``--loader-workers`` (every driver) and
 ``--prefetch`` (the training drivers, ``test`` and ``tools/test_rpn``)
-set ``tpu.LOADER_WORKERS`` and ``tpu.PREFETCH``.  Not ported among the training flags: ``--resume``,
-``--dist-*``, ``--obs-port``, ``--steps-per-dispatch``,
-``--tuned-pipeline``, ``--replay-*`` and ``--device-prep`` (ROADMAP.md
-A.4, A.5.2–A.5.4, A.10).
+set ``tpu.LOADER_WORKERS`` and ``tpu.PREFETCH``.  The training drivers
+take ``--resume`` and the fault-tolerance flags ``--save-every-n-steps``,
+``--auto-resume`` and ``--nan-policy`` (``train/resilience.py``), and
+``get_train_roidb`` applies ``MXR_FAULT_BAD_RECORD``.  Not ported among
+the training flags: ``--dist-*``, ``--obs-port``, ``--steps-per-dispatch``,
+``--tuned-pipeline``, ``--replay-*`` and ``--device-prep``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from mx_rcnn_tpu_torch.logger import logger
 from mx_rcnn_tpu_torch.train.checkpoint import epoch_path, load_params_npz
+from mx_rcnn_tpu_torch.train.resilience import (add_resilience_args,
+                                                inject_roidb_faults)
 from mx_rcnn_tpu_torch.utils.convert_jax import Params, random_params
 
 
@@ -86,6 +90,10 @@ def add_common_args(parser: argparse.ArgumentParser,
                         help="fetch and log the metrics every N steps")
     parser.add_argument("--no_flip", action="store_true")
     parser.add_argument("--no_shuffle", action="store_true")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from epoch --begin_epoch's checkpoint "
+                             "under --prefix: parameters, momentum, step "
+                             "and sampling generator")
     parser.add_argument("--batch_images", type=int, default=None,
                         help="images per step (default "
                              "TRAIN.BATCH_IMAGES)")
@@ -94,6 +102,7 @@ def add_common_args(parser: argparse.ArgumentParser,
                              "shuffles with its own")
     parser.add_argument("--num-steps", type=int, default=0, dest="num_steps",
                         help="cap steps per epoch (smoke runs)")
+    add_resilience_args(parser)
     return parser
 
 
@@ -173,12 +182,14 @@ def get_imdb(args, cfg: Config, test: bool = False):
 
 def get_train_roidb(imdb, cfg: Config, roidb=None) -> list:
     """gt (or a given roidb) → flipped copies when ``TRAIN.FLIP`` → records
-    without gt dropped."""
+    without gt dropped → the records ``MXR_FAULT_BAD_RECORD`` names
+    corrupted (``train/resilience.py:inject_roidb_faults``; after the
+    filter, so that they reach the epoch plan)."""
     if roidb is None:
         roidb = imdb.gt_roidb()
     if cfg.TRAIN.FLIP:
         roidb = imdb.append_flipped_images(roidb)
-    return imdb.filter_roidb(roidb)
+    return inject_roidb_faults(imdb.filter_roidb(roidb))
 
 
 def init_or_load_params(args, model) -> Params:
@@ -217,16 +228,30 @@ class CappedLoader:
     """At most ``n`` batches per epoch of the wrapped loader.  The ``put``
     hook and ``close_workers`` reach the wrapped loader,
     and the wrapped epoch is closed where the cap stops it, so that its
-    prefetch thread and worker tickets end with it."""
+    prefetch thread and worker tickets end with it.
+
+    ``advance_epochs`` and ``skip_next`` (the fast-forward of a resume)
+    reach the wrapped loader too, as the JAX package's ``CappedLoader``
+    forwards them: a skip of ``m`` batches shrinks the next epoch to
+    ``n − m`` batches, so that it ends where the uninterrupted capped
+    epoch ends."""
 
     def __init__(self, inner, n: int):
         self._inner = inner
         self._n = n
+        self._skip = 0
         self.batch_size = inner.batch_size
 
     @property
     def steps_per_epoch(self) -> int:
         return min(self._n, self._inner.steps_per_epoch)
+
+    def advance_epochs(self, n: int) -> None:
+        self._inner.advance_epochs(n)
+
+    def skip_next(self, m: int) -> None:
+        self._inner.skip_next(m)
+        self._skip = m
 
     @property
     def put(self):
@@ -242,9 +267,10 @@ class CappedLoader:
             close()
 
     def __iter__(self):
+        skip, self._skip = self._skip, 0
         it = iter(self._inner)
         try:
-            for _ in range(self.steps_per_epoch):
+            for _ in range(max(self.steps_per_epoch - skip, 0)):
                 try:
                     yield next(it)
                 except StopIteration:

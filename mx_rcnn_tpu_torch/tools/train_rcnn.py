@@ -26,6 +26,7 @@ from mx_rcnn_tpu_torch.tools.common import (add_common_args, cap_steps,
                                             config_from_args, get_imdb,
                                             get_train_roidb,
                                             init_or_load_params)
+from mx_rcnn_tpu_torch.train.resilience import ResilienceOptions
 from mx_rcnn_tpu_torch.train.trainer import fit
 from mx_rcnn_tpu_torch.utils.load_data import load_proposals
 
@@ -67,7 +68,9 @@ def train_rcnn(args, cfg=None, params=None, roidb=None,
         return fit(cfg, model, params, loader, begin_epoch=args.begin_epoch,
                    end_epoch=args.end_epoch, prefix=args.prefix,
                    graph="rcnn", seed=args.seed, frequent=args.frequent,
-                   device=device, fixed_prefixes=fixed)
+                   device=device, fixed_prefixes=fixed,
+                   resume=getattr(args, "resume", False),
+                   resilience=ResilienceOptions.from_args(args))
     finally:
         loader.close_workers()
 

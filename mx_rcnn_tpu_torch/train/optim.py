@@ -17,6 +17,10 @@ Frozen leaves are the JAX package's, decided on the same flat names
 never reach the optimizer.  Every other leaf is decayed and carries its
 momentum on every step, also where the step's graph does not reach it
 (``train/train_step.py`` gives it a zero gradient), as optax's chain does.
+
+The momentum buffers leave and enter the optimizer by JAX key, in their
+leaf's JAX layout (:func:`export_momentum`, :func:`import_momentum`), so
+a checkpoint never depends on the optimizer's parameter order.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ import torch
 import torch.nn as nn
 
 from mx_rcnn_tpu_torch.config import Config
-from mx_rcnn_tpu_torch.utils.convert_jax import jax_names, param_shapes
+from mx_rcnn_tpu_torch.utils.convert_jax import (Params, _from_jax, _tensors,
+                                                 _to_jax, jax_names,
+                                                 param_shapes)
 
 # FrozenBN statistics are never optimizer targets, in any config
 _ALWAYS_FROZEN = ("mean", "var")
@@ -77,15 +83,27 @@ def apply_param_mask(model: nn.Module,
 
 
 def make_lr_schedule(cfg: Config, steps_per_epoch: int,
-                     begin_epoch: int = 0) -> Callable[[int], float]:
+                     begin_epoch: int = 0, origin: Optional[int] = None
+                     ) -> Callable[[int], float]:
     """MultiFactorScheduler(step=LR_STEP epochs, factor=LR_FACTOR) with the
     optional linear warmup, as optax's ``piecewise_constant_schedule``
     joined after ``linear_schedule``: the factor applies from the boundary
     step on.  The step count starts at 0 in ``begin_epoch``: a drop at
-    epoch ``e`` lands on step ``(e − begin_epoch) · steps_per_epoch``, and
-    the drops at or before ``begin_epoch`` are not applied."""
+    epoch ``e`` lands on step ``(e − begin_epoch) · steps_per_epoch``.
+
+    ``origin`` is the epoch the run began in, for a run resumed at
+    ``begin_epoch``: the drops it passed, ``origin < e ≤ begin_epoch``, are
+    in the base rate, as the reference's ``lr_epoch_diff`` puts them.  By
+    default the run begins at ``begin_epoch`` and the drops at or before
+    it are not applied, as in the JAX package's schedule, which its
+    resumed runs also use (ROADMAP.md C.5)."""
     tr = cfg.TRAIN
     warmup = tr.WARMUP_STEP if (tr.WARMUP and tr.WARMUP_STEP > 0) else 0
+    origin = begin_epoch if origin is None else origin
+    base = tr.LR
+    for e in tr.LR_STEP:
+        if origin < e <= begin_epoch:  # one product at a time, as the run
+            base *= tr.LR_FACTOR       # made it
     # MultiFactor drops land on GLOBAL steps; the warmup shifts the
     # constant schedule's clock like optax.join_schedules (a set: the JAX
     # package keys its boundaries in a dict)
@@ -94,7 +112,7 @@ def make_lr_schedule(cfg: Config, steps_per_epoch: int,
                          if (e - begin_epoch) * steps_per_epoch > 0})
 
     def constant(count: int) -> float:
-        lr = tr.LR
+        lr = base
         for b in boundaries:
             if count >= b:
                 lr *= tr.LR_FACTOR
@@ -102,7 +120,7 @@ def make_lr_schedule(cfg: Config, steps_per_epoch: int,
 
     def schedule(count: int) -> float:
         if count < warmup:
-            return tr.WARMUP_LR + (tr.LR - tr.WARMUP_LR) * count / warmup
+            return tr.WARMUP_LR + (base - tr.WARMUP_LR) * count / warmup
         return constant(count - warmup)
 
     return schedule
@@ -136,3 +154,45 @@ def make_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int,
     opt = torch.optim.SGD(params, lr=schedule(0), momentum=tr.MOMENTUM,
                           weight_decay=tr.WD)
     return opt, schedule, mask
+
+
+def export_momentum(model: nn.Module, optimizer: torch.optim.Optimizer
+                    ) -> Params:
+    """``{JAX key: momentum buffer}`` of every leaf that has one, in the
+    leaf's JAX layout (float32 numpy, owning its memory).  Frozen leaves
+    have none, and ``torch.optim.SGD`` makes a buffer at the leaf's first
+    step."""
+    out = {}
+    for key, attr, t in _tensors(model):
+        buf = optimizer.state.get(t, {}).get("momentum_buffer")
+        if buf is not None:
+            out[key] = _to_jax(attr, buf)
+    return out
+
+
+def import_momentum(model: nn.Module, optimizer: torch.optim.Optimizer,
+                    momenta: Params) -> None:
+    """Set the optimizer's momentum buffers from :func:`export_momentum`'s
+    dict, on each leaf's device; a trainable leaf missing from ``momenta``
+    loses its buffer (``SGD`` then starts it at its next gradient, as in a
+    fresh run).  Raises ``KeyError`` naming keys that are not trainable
+    leaves of this optimizer, and ``ValueError`` for a wrong shape."""
+    trainable = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    seen = set()
+    for key, attr, t in _tensors(model):
+        if id(t) not in trainable:
+            continue
+        seen.add(key)
+        state = optimizer.state[t]
+        if key not in momenta:
+            state.pop("momentum_buffer", None)
+            continue
+        buf = _from_jax(attr, momenta[key])
+        if buf.shape != t.shape:
+            raise ValueError(f"momentum {key}: expected {tuple(t.shape)} "
+                             f"(torch layout), got {tuple(buf.shape)}")
+        state["momentum_buffer"] = buf.to(t.device)
+    extra = sorted(set(momenta) - seen)
+    if extra:
+        raise KeyError(f"momentum for leaves that are not trained here: "
+                       f"{extra[:5]}")

@@ -20,7 +20,10 @@ card unless given ``--device cpu``.
 The stages run in one process and hand each other their weights, as the
 JAX driver does; ``--loader-workers`` and ``--prefetch`` reach every
 stage's loader through the config; they write no checkpoints (``--rpn_epochs`` and
-``--rcnn_epochs`` set their lengths, default ``--end_epoch``).  The final
+``--rcnn_epochs`` set their lengths, default ``--end_epoch``), so the
+training drivers' ``--resume``, ``--auto-resume``, ``--save-every-n-steps``
+and ``--nan-policy rollback`` are refused; ``--nan-policy halt`` and
+``skip`` act in every training stage.  The final
 model is saved de-normalised as the port's flat ``{prefix}-{end_epoch:04d}
 .npz``, which ``python -m mx_rcnn_tpu_torch.test --epoch end_epoch`` loads;
 the JAX driver saves it through orbax's ``CheckpointManager``, which is not
@@ -47,6 +50,15 @@ from mx_rcnn_tpu_torch.utils.combine_model import combine_model
 from mx_rcnn_tpu_torch.utils.convert_jax import Params, export_jax_params
 
 
+def checkpoint_flags(args) -> list:
+    """The flags of ``args`` that need checkpoints, which no stage writes."""
+    return [flag for flag, on in (
+        ("--resume", args.resume),
+        ("--auto-resume", args.auto_resume),
+        ("--save-every-n-steps", args.save_every_n_steps > 0),
+        ("--nan-policy rollback", args.nan_policy == "rollback")) if on]
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Train Faster R-CNN "
                                      "alternately (PyTorch port)")
@@ -55,7 +67,12 @@ def parse_args(argv=None):
                         help="epochs per RPN stage (default: end_epoch)")
     parser.add_argument("--rcnn_epochs", type=int, default=None,
                         help="epochs per R-CNN stage (default: end_epoch)")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    bad = checkpoint_flags(args)
+    if bad:
+        parser.error(f"{', '.join(bad)}: the alternate stages write no "
+                     f"checkpoints")
+    return args
 
 
 def alternate_train(args) -> Params:
@@ -63,6 +80,10 @@ def alternate_train(args) -> Params:
     parametrisation), also saved de-normalised under ``--prefix``."""
     setup_logging()
     resolve_device(args.device)  # raise before any work without a card
+    bad = checkpoint_flags(args)
+    if bad:
+        raise ValueError(f"{', '.join(bad)}: the alternate stages write no "
+                         f"checkpoints")
     cfg = config_from_args(args, train=True)
     if cfg.network.HAS_MASK:
         raise NotImplementedError(

@@ -17,6 +17,17 @@ them (``tools/common.py:init_or_load_params``) → ``fit`` over epochs
 ``{prefix}-{epoch:04d}.npz`` that ``eval/tester.py:Predictor`` loads.
 ``--synthetic`` sets ``PIXEL_STDS=127`` as the JAX driver does: random
 weights cannot absorb the raw 0..255 pixel scale.
+
+A run that survives interruption (``train/resilience.py``)::
+
+    python -m mx_rcnn_tpu_torch.train_end2end ... --prefix model/e2e \
+        --save-every-n-steps 500 --auto-resume --nan-policy skip
+
+writes a step checkpoint every 500 steps under ``model/e2e-steps/``, saves
+one more and exits 0 on SIGTERM, and when rerun with the same command
+continues from the latest checkpoint, the loader fast-forwarded to the
+batch.  ``--resume --begin_epoch E`` continues from epoch ``E``'s
+checkpoint.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from mx_rcnn_tpu_torch.tools.common import (add_common_args, cap_steps,
                                             config_from_args, get_imdb,
                                             get_train_roidb,
                                             init_or_load_params)
+from mx_rcnn_tpu_torch.train.resilience import ResilienceOptions
 from mx_rcnn_tpu_torch.train.trainer import fit
 
 
@@ -57,7 +69,9 @@ def train_net(args):
     try:
         return fit(cfg, model, params, loader, begin_epoch=args.begin_epoch,
                    end_epoch=args.end_epoch, prefix=args.prefix,
-                   seed=args.seed, frequent=args.frequent, device=device)
+                   seed=args.seed, frequent=args.frequent, device=device,
+                   resume=args.resume,
+                   resilience=ResilienceOptions.from_args(args))
     finally:
         loader.close_workers()
 

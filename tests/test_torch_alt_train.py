@@ -356,3 +356,40 @@ def test_export_owns_its_memory():
                if k.endswith("/bias"))
     for k, v in kept.items():
         np.testing.assert_array_equal(before[k], v, err_msg=k)
+
+
+CHECKPOINT_FLAGS = [(["--resume"], "--resume", {"resume": True}),
+                    (["--auto-resume"], "--auto-resume",
+                     {"auto_resume": True}),
+                    (["--save-every-n-steps", "2"], "--save-every-n-steps",
+                     {"save_every_n_steps": 2}),
+                    (["--nan-policy", "rollback"], "--nan-policy rollback",
+                     {"nan_policy": "rollback"})]
+
+
+@pytest.mark.parametrize("flags,name,attrs", CHECKPOINT_FLAGS,
+                         ids=[c[1] for c in CHECKPOINT_FLAGS])
+def test_alternate_refuses_checkpoint_flags(capsys, flags, name, attrs):
+    """The alternate stages write no checkpoints: each flag that needs one
+    is refused by the parser, naming it, and by ``alternate_train`` before
+    any data is read."""
+    from mx_rcnn_tpu_torch import train_alternate
+
+    with pytest.raises(SystemExit):
+        train_alternate.parse_args(["--synthetic"] + flags)
+    assert name in capsys.readouterr().err
+    args = train_alternate.parse_args(["--synthetic", "--device", "cpu",
+                                       "--root_path", "/nonexistent"])
+    vars(args).update(attrs)
+    with pytest.raises(ValueError, match=name):
+        train_alternate.alternate_train(args)
+
+
+@pytest.mark.parametrize("policy", ["off", "halt", "skip"])
+def test_alternate_accepts_the_other_nan_policies(policy):
+    from mx_rcnn_tpu_torch import train_alternate
+    from mx_rcnn_tpu_torch.train.resilience import ResilienceOptions
+
+    args = train_alternate.parse_args(["--synthetic", "--nan-policy",
+                                       policy])
+    assert ResilienceOptions.from_args(args).nan_policy == policy

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports without JAX and without the
-JAX package, no file of it names ``jax``, ``flax``, ``cv2`` or
+JAX package, no file of it names ``jax``, ``flax``, ``orbax``, ``cv2`` or
 ``mx_rcnn_tpu``, PIL is imported only inside ``get_image``'s JPEG branch,
 and its entry points (``Predictor``, ``fit``, ``train_end2end``, ``test``,
 ``serve``, ``train_alternate`` and its stage tools) never fall back to the
@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 
 PKG = pathlib.Path(mx_rcnn_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
-FORBIDDEN = ("jax", "flax", "cv2", "mx_rcnn_tpu")
+FORBIDDEN = ("jax", "flax", "orbax", "cv2", "mx_rcnn_tpu")
 
 
 def port_modules():
@@ -48,7 +48,8 @@ def test_imports_with_jax_and_the_jax_package_blocked():
                 "serve.controller", "serve.driver", "serve.__main__",
                 "train_alternate", "tools.train_rpn", "tools.test_rpn",
                 "tools.train_rcnn", "utils.combine_model",
-                "utils.load_data"):
+                "utils.load_data", "train.resilience", "train.checkpoint",
+                "train.optim", "train.train_step", "utils.convert_torch"):
         assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -115,6 +116,14 @@ def test_train_end2end_without_a_card_raises(monkeypatch, tmp_path):
         train_end2end.train_net(args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fit(None, None, {}, None)
+    # resuming, and the fault-tolerance flags, need the card all the same
+    for flags in (["--resume", "--begin_epoch", "1"],
+                  ["--auto-resume", "--save-every-n-steps", "2",
+                   "--nan-policy", "skip"]):
+        args = train_end2end.parse_args(["--synthetic", "--prefix",
+                                         str(tmp_path / "e2e")] + flags)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_end2end.train_net(args)
     assert not list(tmp_path.iterdir())
 
 
