@@ -156,7 +156,26 @@ Phases, each printing its own lines:
    ``--pretrained``: every backbone and ``head_body`` leaf laid over, a
    ``Predictor`` on it detects.  The step checkpoint's bytes and its save
    and load times are printed.
-11. One ``{"kernels": [...]}`` JSON line, then the last line
+11. COCO at full width (``coco_slice``): a set in val2017's layout written
+   from the seed (8 images at 640×480, 480×640, 500×375 and 427×640, PNG
+   bytes under ``.jpg`` names, COCO's 80 sparse category ids, a crowd, a
+   zero-area and a past-the-edge box, an image of 110 boxes).  ``python -m
+   mx_rcnn_tpu_torch.train_end2end --dataset coco``'s ``train_net`` from
+   the training slice's checkpoint (ResNet-101, 81 classes, the 800×1333
+   bucket padded to 800×1344, ``ASSIGN_FUSED``, ``FLIP``, ``COCO_STEPS``
+   steps of ``BATCH``): each kernel once a step, the peak memory and the
+   step walls.  ``python -m mx_rcnn_tpu_torch.test --dataset coco`` on
+   the host route and with ``--device-postprocess``: the 12 COCO stats,
+   the routes' records matched, images/s, ``COCOEval``'s host seconds;
+   the ground truth as detections scores AP = AR100 = 1.  The server in
+   both modes (replies equal to the offline records of their batch row),
+   then ``python -m mx_rcnn_tpu_torch.demo`` on one image against the
+   host route at batch 1.  The NMS pair at the post-process's 160 rows ×
+   300 and the assign pair at 37 800 anchors with G = 100, each against
+   its plain version, timed, with its bound.
+12. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
+   shape it was timed at: the training path's, then COCO's), then the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
@@ -291,6 +310,24 @@ RES_FLAGS = ["--network", "resnet101", "--dataset", "PascalVOC",
              "--batch_images", str(BATCH), "--cfg", "tpu__ASSIGN_FUSED=True",
              "--end_epoch", "1", "--frequent", "1"]
 RES_PROC_TIMEOUT_S = 600
+# the COCO slice: a set of val2017's layout written from the seed, its
+# images (h, w) at COCO's usual sizes, landscape first so that a batch of
+# two holds one orientation; COCO's 80 sparse category ids; the image
+# with more non-crowd boxes than MAX_GT; the training steps of the driver
+# run, the requests a serving mode, and the driver flags (the training
+# ones add the fused assign)
+COCO_SPLIT = "val2017"
+COCO_SIZES = ((480, 640), (375, 500), (480, 640), (375, 500), (640, 480),
+              (640, 427), (640, 480), (640, 427))
+COCO_IDS = tuple(i for i in range(1, 91)
+                 if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+COCO_MANY = 110
+COCO_STEPS = 4
+COCO_REQUESTS = 16
+COCO_STATS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+              "AR100", "ARs", "ARm", "ARl")
+COCO_FLAGS = ["--network", "resnet101", "--dataset", "coco",
+              "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}"]
 
 
 def log(phase: str, **kw) -> None:
@@ -1130,7 +1167,12 @@ def train_times(P, ctx, dev, main_anchors) -> list:
                  f"training path's inputs (max abs err {k['max_abs_err']})")
         k.update(route="cuda", source=SOURCES[k["name"]],
                  replaces=REPLACES[k["name"]],
-                 launches=ctx["launches"][k["name"]])
+                 launches=ctx["launches"][k["name"]],
+                 shape=f"train: B={int(boxes.shape[0])}, "
+                       f"{int(boxes.shape[1])} -> {tr.RPN_POST_NMS_TOP_N}"
+                 if k["name"].startswith("nms") else
+                 f"train: N={int(anchors.shape[0])}, "
+                 f"G={int(fixed['gt_boxes'].shape[1])}, the batch's gt")
     log("times_train", shape={
         "B": BATCH, "anchors": int(anchors.shape[0]),
         "gt": int(fixed["gt_boxes"].shape[1]),
@@ -1285,6 +1327,8 @@ def match_routes(host, device, cap: int) -> int:
             extra.append(h[~used, 4])
         extra = np.concatenate(extra)
         n_host = sum(len(host[k][i]) for k in range(1, len(host)))
+        if not n_host:
+            continue
         cut = min(host[k][i][:, 4].min() for k in range(1, len(host))
                   if len(host[k][i]))
         if len(extra) and (n_host <= cap or np.abs(extra - cut).max() > 1e-6):
@@ -1396,19 +1440,19 @@ def eval_slice(P, prefix: str, epoch: int, work: str, seed: int,
     return {"cfg": cfg, "args": args, "stats": stats, "launches": launches}
 
 
-def postprocess_times(P, ev, dev) -> list:
+def postprocess_times(P, ev, dev, phase: str = "times_postprocess") -> list:
     """The NMS pair at the device post-process's shape (B·(K−1) rows of
-    ``TEST.RPN_POST_NMS_TOP_N`` candidates, ``max_per_image`` kept): the
-    kernels' ``keep_idx``/``keep_mask`` identical to ``nms_padded_batch``
-    on the same CUDA inputs, then timed against their plain versions
+    ``TEST.RPN_POST_NMS_TOP_N`` candidates, ``max_per_image`` kept) on the
+    first batch of the evaluation's dataset: the kernels'
+    ``keep_idx``/``keep_mask`` identical to ``nms_padded_batch`` on the
+    same CUDA inputs, then timed against their plain versions
     (:func:`time_kernels`), and the synchronising calls of one batch's
-    dispatch reported.  Returns the rows."""
+    dispatch reported, under ``phase``.  Returns the rows."""
     cfg, te = ev["cfg"], ev["cfg"].TEST
     targs = P.test_driver.parse_args(ev["args"])
     predictor = P.tester.Predictor(P.build_model(cfg),
                                    P.load_eval_params(targs), cfg, device=dev)
-    roidb = P.PascalVOC(cfg.dataset.TEST_IMAGE_SET, targs.root_path,
-                        cfg.dataset.DATASET_PATH).gt_roidb()
+    roidb = P.get_imdb(targs, cfg, test=True).gt_roidb()
     batch = next(iter(P.TestLoader(roidb, cfg, batch_size=BATCH)))
     put = predictor.batch_put(batch)
     rois, roi_valid, cls_prob, deltas, _ = predictor.predict(
@@ -1430,12 +1474,10 @@ def postprocess_times(P, ev, dev) -> list:
             fail(f"{kern['name']} disagrees with its plain version at the "
                  f"post-process shape")
     syncs = sync_report(P, predictor, batch, te)
-    log("times_postprocess", shape={"rows": b * k1, "n": r,
-                                    "max_out": te.MAX_PER_IMAGE,
-                                    "thresh": te.NMS},
+    log(phase, shape={"rows": b * k1, "n": r, "max_out": te.MAX_PER_IMAGE,
+                      "thresh": te.NMS},
         candidates=int(sv.sum()), identical=True,
-        launches_per_batch={"host": ev["launches"]["serial"],
-                            "devpost": ev["launches"]["pipelined+devpost"]},
+        launches=ev["launches"],
         kernels=kernels, syncs=syncs)
     return kernels
 
@@ -1575,7 +1617,7 @@ def serve_mode(P, predictor, engine, cfg, sock: str, images: list,
             fail(f"serve [{mode}]: {name} launched {count} times in {n} "
                  f"batches, expected {want}")
     offline = [offline_records(P, predictor, cfg, im, e2e) for im in images]
-    empty = [SERVE_SIZES[j] for j, rows in enumerate(offline)
+    empty = [images[j].shape[:2] for j, rows in enumerate(offline)
              if not all(rows)]
     if empty:
         fail(f"serve [{mode}]: the offline path finds no detections for "
@@ -2982,6 +3024,406 @@ def _resilience_runs(P, pretrained, work, seed, smi, dev, on_card, sync,
     return out
 
 
+# ---- the COCO slice -------------------------------------------------------------
+
+def coco_image(rng, h: int, w: int, n: int, cats):
+    """Low-contrast noise with ``n`` solid rectangles, each given a
+    category id drawn from ``cats`` → (uint8 (h, w, 3) image, [(x, y, bw,
+    bh, cat)]) in 0-based pixels; past 8 rectangles they are drawn
+    smaller."""
+    img = (rng.randn(h, w, 3) * 20 + 127).clip(0, 255).astype(np.uint8)
+    lo, hi = (12, 6) if n > 8 else (5, 2)
+    boxes = []
+    for _ in range(n):
+        bw, bh = rng.randint(w // lo, w // hi), rng.randint(h // lo, h // hi)
+        x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+        img[y:y + bh, x:x + bw] = rng.randint(40, 255, 3)
+        boxes.append((x, y, bw, bh, int(cats[rng.randint(len(cats))])))
+    return img, boxes
+
+
+def write_coco(root: str, seed: int) -> str:
+    """A COCO set in val2017's layout under ``root/coco``: the images of
+    ``COCO_SIZES`` drawn by :func:`coco_image` (PNG bytes under ``.jpg``
+    names, so no JPEG decoder is needed; sparse image ids in the sizes'
+    order), ``annotations/instances_val2017.json`` under COCO's 80 sparse
+    category ids.  The first image also holds a box past its right and
+    bottom edges, a zero-area box and a crowd box; the second holds
+    ``COCO_MANY`` non-crowd boxes of five categories (above ``MAX_GT``).
+    Returns the dataset path."""
+    rng = np.random.RandomState(seed)
+    path = os.path.join(root, "coco")
+    os.makedirs(os.path.join(path, COCO_SPLIT))
+    os.makedirs(os.path.join(path, "annotations"))
+    images, anns = [], []
+
+    def ann(img_id, x, y, bw, bh, cat, area=None, crowd=0):
+        anns.append({"id": len(anns) + 1, "image_id": img_id,
+                     "category_id": cat,
+                     "bbox": [float(x), float(y), float(bw), float(bh)],
+                     "area": float(bw * bh if area is None else area),
+                     "iscrowd": crowd})
+
+    for i, (h, w) in enumerate(COCO_SIZES):
+        img_id = 139 + 97 * i
+        many = i == 1
+        img, boxes = coco_image(rng, h, w,
+                                COCO_MANY if many else rng.randint(1, 4),
+                                COCO_IDS[:5] if many else COCO_IDS)
+        name = f"{img_id:012d}.jpg"
+        with open(os.path.join(path, COCO_SPLIT, name), "wb") as f:
+            f.write(png_bytes(img))
+        images.append({"id": img_id, "file_name": name, "height": h,
+                       "width": w})
+        for box in boxes:
+            ann(img_id, *box)
+        if i == 0:
+            ann(img_id, w - 50, h - 40, 120, 90, COCO_IDS[-1])
+            ann(img_id, 10, 10, 30, 30, COCO_IDS[1], area=0.0)
+            ann(img_id, 0, 0, w // 2, h // 2, COCO_IDS[0], crowd=1)
+    with open(os.path.join(path, "annotations",
+                           f"instances_{COCO_SPLIT}.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": c, "name": f"cat{c}"} for c in COCO_IDS]}, f)
+    return path
+
+
+def coco_slice(P, pretrained: str, work: str, seed: int, device=None,
+               flags=COCO_FLAGS) -> list:
+    """COCO end to end at full width (ResNet-101, 81 classes, the 800×1333
+    bucket, bf16 compute) on a set written by :func:`write_coco`, every
+    kernel count set to 0 just before each run and read just after:
+
+    * ``python -m mx_rcnn_tpu_torch.train_end2end --dataset coco``'s
+      ``train_net`` with ``ASSIGN_FUSED``, ``FLIP``, ``BATCH`` images a
+      step, ``COCO_STEPS`` steps, ``--pretrained`` the training slice's
+      21-class checkpoint (the class-sized head leaves keep their initial
+      values): finite losses, each kernel once a step, the peak of
+      ``torch.cuda.max_memory_allocated``, the step walls, fit's wait on
+      the loader a step and each image's decode seconds; the record
+      with ``COCO_MANY`` boxes loads with ``MAX_GT`` of them;
+    * ``python -m mx_rcnn_tpu_torch.test --dataset coco`` on that
+      checkpoint, serial, on the host route (a warm-up run first) and with
+      ``--device-postprocess``: the 12 COCO stats each, the NMS pair once
+      and twice a batch, the routes' records held to each other
+      (:func:`match_routes`), the images/s of each; ``COCOEval.evaluate``'s
+      host seconds on the host route's results (the same stats), and the
+      ground truth written as detections of score 1 scoring AP = AR100 =
+      1.0;
+    * the server (``serve.driver.build_engine`` with ``--dataset coco``)
+      in host-NMS and e2e mode, ``COCO_REQUESTS`` requests each
+      (:func:`serve_mode`: the warmup's 2 programs, each reply equal to
+      the offline records of its batch row, the NMS pair once / twice a
+      batch);
+    * ``python -m mx_rcnn_tpu_torch.demo`` on the set's first image at a
+      threshold inside a gap of its highest class scores: its detections
+      equal the host route's at batch 1 (``im_detect`` → ``per_class_nms`` at that
+      threshold, no cap), the NMS pair once;
+    * the NMS pair at the device post-process's COCO shape (B·80 rows of
+      300, 100 kept; :func:`postprocess_times`) and the assign pair at
+      the bucket's 37 800 anchors with G = 100 valid gt
+      (:func:`time_assign`), each against its plain version, timed, with
+      its bound.
+
+    Returns the kernels' rows at the COCO shapes."""
+    tstart = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    data = write_coco(work, seed)
+    paths = ["--image_set", COCO_SPLIT, "--dataset_path", data,
+             "--root_path", os.path.join(work, "coco_cache")]
+    on = [] if device is None else ["--device", str(device)]
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep,
+                "assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+
+    def counted(fn):
+        sync()
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        sync()
+        return out, {k: f.launches for k, f in counters.items()}
+
+    # ---- training through the driver ----
+    prefix = os.path.join(work, "coco_model", "e2e")
+    targs = P.train_end2end.parse_args(flags + paths + on + [
+        "--cfg", "tpu__ASSIGN_FUSED=True", "--pretrained", pretrained,
+        "--batch_images", str(BATCH), "--num-steps", str(COCO_STEPS),
+        "--end_epoch", "1", "--frequent", "1", "--prefix", prefix])
+    tcfg = P.config_from_args(targs, train=True)
+    stride = max(tcfg.network.IMAGE_STRIDE, tcfg.network.RPN_FEAT_STRIDE)
+    bucket = P.image_mod.bucket_shape(tcfg.tpu.SCALES[0], stride)
+    if (tcfg.NUM_CLASSES, bucket, tcfg.TRAIN.FLIP) != (81, (800, 1344), True):
+        fail(f"coco: {tcfg.NUM_CLASSES} classes, bucket {bucket}, flip "
+             f"{tcfg.TRAIN.FLIP}")
+    roidb = P.get_imdb(targs, tcfg).gt_roidb()
+    many = max(roidb, key=lambda r: len(r["boxes"]))
+    sample = P.loader_mod._load_record(many, tcfg, tcfg.tpu.SCALES[0])
+    if len(many["boxes"]) != COCO_MANY or \
+            int(sample["gt_valid"].sum()) != tcfg.tpu.MAX_GT:
+        fail(f"coco: the record of {len(many['boxes'])} boxes loads "
+             f"{int(sample['gt_valid'].sum())} gt, MAX_GT "
+             f"{tcfg.tpu.MAX_GT}")
+    seen, walls, last = [], [], [0.0]
+    waits, decodes = [], []
+
+    def on_step(epoch, step, metrics):
+        # frequent=1: fit fetches (and so synchronises) after every step
+        now = time.perf_counter()
+        seen.append(metrics)
+        walls.append(now - last[0])
+        last[0] = now
+
+    class WaitTimed:
+        """The driver's loader with the consumer's wait in each ``next``
+        timed (at 0 workers and ``--prefetch 0``: record loading, decode,
+        staging and the ``put`` hook, all on fit's thread)."""
+
+        def __init__(self, inner):
+            object.__setattr__(self, "_inner", inner)
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+        def __setattr__(self, name, value):
+            setattr(self._inner, name, value)
+
+        def __iter__(self):
+            it = iter(self._inner)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    waits.append(time.perf_counter() - t0)
+                    yield batch
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+
+    fit, get_image = P.train_end2end.fit, P.loader_mod.get_image
+
+    def fit_timed(cfg, model, params, loader, **k):
+        last[0] = time.perf_counter()
+        return fit(cfg, model, params, WaitTimed(loader),
+                   batch_end_callback=on_step, **k)
+
+    def get_image_timed(*a, **k):
+        t0 = time.perf_counter()
+        out = get_image(*a, **k)
+        decodes.append(time.perf_counter() - t0)
+        return out
+
+    base_bytes = torch.cuda.memory_allocated() if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    P.train_end2end.fit = fit_timed
+    P.loader_mod.get_image = get_image_timed
+    try:
+        _, train_launches = counted(lambda: P.train_end2end.train_net(targs))
+    finally:
+        P.train_end2end.fit = fit
+        P.loader_mod.get_image = get_image
+    peak_bytes = torch.cuda.max_memory_allocated() if on_card else 0
+    if len(seen) != COCO_STEPS or len(waits) != COCO_STEPS or \
+            len(decodes) != COCO_STEPS * BATCH:
+        fail(f"coco train: {len(seen)} steps of {COCO_STEPS}, "
+             f"{len(waits)} loader waits, {len(decodes)} images decoded")
+    for name, count in train_launches.items():
+        if count != COCO_STEPS:
+            fail(f"coco train: {name} launched {count} times in "
+                 f"{COCO_STEPS} steps")
+    if not all(np.isfinite(list(m.values())).all() for m in seen):
+        fail(f"coco train: non-finite metrics {seen}")
+    trained = P.load_params_npz(P.epoch_path(prefix, 1))
+    start = P.load_params_npz(pretrained)
+    laid = sorted(k for k in trained if k in start
+                  and np.shape(start[k]) == np.shape(trained[k]))
+    kept = sorted(k for k in trained if k in start
+                  and np.shape(start[k]) != np.shape(trained[k]))
+    if not kept or any("cls_score" not in k and "bbox_pred" not in k
+                       for k in kept):
+        fail(f"coco train: the 21-class leaves kept at init: {kept}")
+    log("coco_train", network=tcfg.network.NETWORK,
+        classes=tcfg.NUM_CLASSES, bucket=list(bucket),
+        dtype=tcfg.tpu.COMPUTE_DTYPE, assign_fused=tcfg.tpu.ASSIGN_FUSED,
+        images=len(COCO_SIZES), steps=len(seen),
+        launches=train_launches, pretrained_laid_over=len(laid),
+        pretrained_kept_init=kept, max_gt=tcfg.tpu.MAX_GT,
+        many_boxes=len(many["boxes"]),
+        memory_before_bytes=base_bytes, max_memory_allocated_bytes=peak_bytes,
+        step_wall_s=walls,
+        step_wall_median_s=statistics.median(walls[1:]) if len(walls) > 1
+        else None, loader_wait_s=waits, image_decode_s=decodes,
+        loader_wait_share=sum(waits) / sum(walls),
+        total_loss=[m["total_loss"] for m in seen])
+    del trained, start
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- evaluation through the test driver ----
+    eargs = flags + paths + on + ["--prefix", prefix, "--epoch", "1",
+                                  "--batch_images", str(BATCH),
+                                  "--eval-inflight", "0"]
+    modes = {"warm-up": [], "serial": [],
+             "serial+devpost": ["--device-postprocess"]}
+    n_batches = -(-len(COCO_SIZES) // BATCH)
+    stats, boxes, launches = {}, {}, {}
+    for mode, extra in modes.items():
+        cache = os.path.join(work, f"coco-dets-{mode}.pkl")
+        out, launches[mode] = counted(lambda: P.test_driver.test_rcnn(
+            P.test_driver.parse_args(eargs + extra + ["--dets_cache",
+                                                      cache])))
+        want = n_batches * (2 if "devpost" in mode else 1)
+        for name in ("nms_mask", "nms_sweep"):
+            if launches[mode][name] != want:
+                fail(f"coco eval [{mode}]: {name} launched "
+                     f"{launches[mode][name]} times in {n_batches} batches, "
+                     f"expected {want}")
+        keys = tuple(k for k in out if k != "eval_pipeline")
+        if keys != COCO_STATS or not all(
+                np.isfinite(out[k]) and -1.0 <= out[k] <= 1.0 for k in keys):
+            fail(f"coco eval [{mode}]: stats {out}")
+        with open(cache, "rb") as f:
+            boxes[mode] = pickle.load(f)
+        stats[mode] = out
+    ecfg = P.config_from_args(P.test_driver.parse_args(eargs), train=False)
+    matched = match_routes(boxes["serial"], boxes["serial+devpost"],
+                           ecfg.TEST.MAX_PER_IMAGE)
+    imdb = P.get_imdb(P.test_driver.parse_args(eargs), ecfg, test=True)
+    results = imdb.detections_to_coco(boxes["serial"])
+    t0 = time.perf_counter()
+    again = P.COCOEval(imdb.ann_file, results).evaluate()
+    cocoeval_s = time.perf_counter() - t0
+    if again != {k: stats["serial"][k] for k in COCO_STATS}:
+        fail("coco eval: COCOEval on the host route's results gives other "
+             "stats than the driver")
+    with open(imdb.ann_file) as f:
+        gt = [a for a in json.load(f)["annotations"] if not a["iscrowd"]]
+    perfect = P.COCOEval(imdb.ann_file, [
+        {"image_id": a["image_id"], "category_id": a["category_id"],
+         "bbox": a["bbox"], "score": 1.0} for a in gt]).evaluate()
+    if perfect["AP"] != 1.0 or perfect["AR100"] != 1.0:
+        fail(f"coco eval: the ground truth as detections scores {perfect}")
+    log("coco_eval", images=len(COCO_SIZES),
+        sizes=[list(s) for s in COCO_SIZES], batch=BATCH, launches=launches,
+        device_matched=matched, results=len(results),
+        detections_per_image={m: [sum(len(b[k][i]) for k in range(1, len(b)))
+                                  for i in range(len(COCO_SIZES))]
+                              for m, b in boxes.items()},
+        stats={m: {k: s[k] for k in COCO_STATS} for m, s in stats.items()},
+        imgs_per_sec={m: s["eval_pipeline"]["imgs_per_sec"]
+                      for m, s in stats.items()},
+        pipeline={m: s["eval_pipeline"] for m, s in stats.items()},
+        cocoeval_host_s=cocoeval_s, gt_as_detections=perfect)
+
+    # ---- serving ----
+    P.telemetry.configure(work, stream=False)
+    sargs = P.serve_driver.parse_args(flags + on + [
+        "--prefix", prefix, "--epoch", "1", "--serve-batch", str(BATCH),
+        "--max-delay-ms", "10", "--unix-socket", "unused"])
+    scfg = P.config_from_args(sargs, train=False)
+    rng = np.random.RandomState(seed + 1)
+    images = [coco_image(rng, h, w, 3, COCO_IDS)[0]
+              for h, w in sorted(set(COCO_SIZES))]
+    served = {}
+    predictor, engine = P.serve_driver.build_engine(sargs, scfg)
+    try:
+        served["host_nms"] = serve_mode(P, predictor, engine, scfg,
+                                        os.path.join(work, "coco-host.sock"),
+                                        images, e2e=False,
+                                        requests=COCO_REQUESTS)
+    finally:
+        engine.stop()
+    engine = P.serve.ServeEngine(predictor, scfg, dataclasses.replace(
+        engine.opts, serve_e2e=True)).start()
+    try:
+        served["e2e"] = serve_mode(P, predictor, engine, scfg,
+                                   os.path.join(work, "coco-e2e.sock"),
+                                   images, e2e=True, requests=COCO_REQUESTS)
+    finally:
+        engine.stop()
+    P.telemetry.shutdown()
+    log("coco_serve", classes=scfg.NUM_CLASSES,
+        sizes=[list(im.shape[:2]) for im in images], batch=BATCH,
+        modes=served)
+
+    # ---- the demo against the host route at batch 1 ----
+    path = imdb.image_path(0)
+    s, hw, r, info = P.image_mod.stage_raw_to_bucket(
+        P.image_mod.get_image(path), scfg.tpu.SCALES[0], stride)
+    (scores, dboxes, valid), = P.tester.im_detect(predictor, predictor.batch_put(
+        {"images": s[None], "raw_hw": hw[None], "prep_ratio": r[None],
+         "im_info": info[None]}))
+    # a threshold inside the widest gap between the 200th and the 10th
+    # highest distinct class score: some rows above it, many below
+    top = np.unique(scores[valid][:, 1:])[-200:-9]
+    gap = int(np.argmax(np.diff(top)))
+    thresh = float((top[gap] + top[gap + 1]) / 2)
+    ref = P.post.per_class_nms(scores, dboxes, valid, scfg.NUM_CLASSES,
+                               thresh, scfg.TEST.NMS, 0)
+    del predictor, engine
+    dets, demo_launches = counted(lambda: P.demo.demo_net(P.demo.parse_args(
+        flags + on + ["--prefix", prefix, "--epoch", "1", "--image", path,
+                      "--thresh", repr(thresh)])))
+    for name, count in demo_launches.items():
+        if count != (1 if name.startswith("nms") else 0):
+            fail(f"coco demo: {name} launched {count} times")
+    got = {k: np.asarray([d for c, d in dets if c == f"class{k}"],
+                         np.float32).reshape(-1, 5)
+           for k in range(1, scfg.NUM_CLASSES)}
+    for k in range(1, scfg.NUM_CLASSES):
+        a, b = got[k], ref[k]
+        if a.shape != b.shape or (len(a) and (
+                np.abs(a[:, 4] - b[:, 4]).max() > 1e-6
+                or np.abs(a[:, :4] - b[:, :4]).max() > 1e-3)):
+            fail(f"coco demo: class {k} gives {len(a)} detections, the host "
+                 f"route {len(b)}, or other values")
+    if not dets:
+        fail("coco demo: no detection above the threshold")
+    log("coco_demo", image=os.path.basename(path), thresh=thresh,
+        detections=len(dets), launches=demo_launches, matches_host=True)
+
+    # ---- the kernels at the COCO shapes ----
+    if on_card:
+        torch.cuda.empty_cache()
+    rows = postprocess_times(P, {"cfg": ecfg, "args": eargs,
+                                 "launches": launches}, dev,
+                             "times_postprocess_coco")
+    for k in rows:
+        k.update(launches=launches["serial+devpost"][k["name"]],
+                 shape=f"coco post-process: {BATCH * 80} rows x "
+                       f"{ecfg.TEST.RPN_POST_NMS_TOP_N} -> "
+                       f"{ecfg.TEST.MAX_PER_IMAGE}")
+    anchors = P.all_anchors(bucket[0] // 16, bucket[1] // 16, 16,
+                            P.generate_anchors())
+    per = [assign_case(np.random.RandomState(70 + b), anchors, (800, 1333),
+                       100, 100, (40.0, 480.0)) for b in range(BATCH)]
+    arows = time_assign(P.assign_cuda, torch.from_numpy(anchors).to(dev), *(
+        torch.from_numpy(np.stack([p[i] for p in per])).to(dev)
+        for i in range(3)))
+    for k in arows:
+        if k["max_abs_err"] != 0.0:
+            fail(f"{k['name']} disagrees with its plain version at "
+                 f"N={len(anchors)}, G=100")
+        k.update(launches=train_launches[k["name"]],
+                 shape=f"coco train: N={len(anchors)}, G=100")
+    log("times_assign_coco", shape={"B": BATCH, "anchors": len(anchors),
+                                    "gt": 100}, kernels=arows)
+    out = rows + arows
+    for k in out:
+        k.update(route="cuda", source=SOURCES[k["name"]],
+                 replaces=REPLACES[k["name"]])
+    log("coco_total", seconds=time.perf_counter() - tstart)
+    return out
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -2991,12 +3433,15 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch import test as test_driver
     from mx_rcnn_tpu_torch import train_alternate
     from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch import demo
     from mx_rcnn_tpu_torch.data import image as image_mod
+    from mx_rcnn_tpu_torch.data import loader as loader_mod
     from mx_rcnn_tpu_torch.data import workers
     from mx_rcnn_tpu_torch.data.loader import AnchorLoader, ROIIter, TestLoader
     from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
     from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from mx_rcnn_tpu_torch.eval import tester
+    from mx_rcnn_tpu_torch.eval.coco_eval import COCOEval
     from mx_rcnn_tpu_torch.kernels import _build, assign_cuda, nms_cuda
     from mx_rcnn_tpu_torch.models.detector import build_model
     from mx_rcnn_tpu_torch.models.losses import fg_prob
@@ -3237,10 +3682,17 @@ def main() -> int:
         # ---- 10. resilience at full width -------------------------------------
         torch.cuda.empty_cache()
         resilience_slice(P, P.epoch_path(prefix, epoch), work, args.seed, smi)
+
+        # ---- 11. COCO at full width -------------------------------------------
+        torch.cuda.empty_cache()
+        coco = coco_slice(P, P.epoch_path(prefix, epoch), work, args.seed)
     log("total", seconds=time.perf_counter() - t_start)
 
-    order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the main path's rows (the training shape), then the COCO shapes'
+    kernels += coco
+    order = ("name", "shape", "route", "source", "replaces", "launches",
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in order}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,16 @@
     python -m mx_rcnn_tpu_torch.test --prefix model/e2e --epoch 10 \\
         --image_set 2007_test --dataset_path data/VOCdevkit
 
-config (+ ``--cfg`` overrides) → ``PascalVOC`` (or ``--synthetic``) →
-``TestLoader`` (``--prefetch`` batches ahead on its thread, default 0) →
-``Predictor`` on the checkpoint ``{prefix}-{epoch:04d}
+    python -m mx_rcnn_tpu_torch.test --dataset coco --prefix model/e2e \\
+        --epoch 6 --image_set val2017 --dataset_path data/coco
+
+config (+ ``--cfg`` overrides) → ``PascalVOC``, ``COCODataset`` (or
+``--synthetic``) → ``TestLoader`` (``--prefetch`` batches ahead on its
+thread, default 0) → ``Predictor`` on the checkpoint ``{prefix}-{epoch:04d}
 .npz`` → ``pred_eval`` (host or ``--device-postprocess`` route, serial
-with ``--eval-inflight 0`` or overlapped) → per-class AP and mAP.  Flags
-of the JAX driver whose machinery is not ported raise by name.
+with ``--eval-inflight 0`` or overlapped) → the dataset's scores: VOC's
+per-class AP and mAP, COCO's 12 box stats (AP … ARl).  Flags of the JAX
+driver whose machinery is not ported raise by name.
 """
 
 from __future__ import annotations
@@ -91,7 +95,7 @@ def test_rcnn(args) -> dict:
                                       f"mx_rcnn_tpu_torch (ROADMAP.md)")
     if args.infer_dtype not in INFER_DTYPES:
         raise NotImplementedError(f"--infer_dtype {args.infer_dtype} is not "
-                                  f"ported (ROADMAP.md A.8)")
+                                  f"ported (ROADMAP.md A.11)")
     device = resolve_device(args.device)
     cfg = config_from_args(args, train=False)
     imdb = get_imdb(args, cfg, test=True)
@@ -105,9 +109,22 @@ def test_rcnn(args) -> dict:
                       inflight=args.eval_inflight,
                       host_workers=args.eval_host_workers,
                       device_postprocess=args.device_postprocess)
-    logger.info("evaluation done: mAP %.4f, %s", stats["mAP"],
-                stats["eval_pipeline"])
+    logger.info("evaluation done: %s", flat_stats(stats))
     return stats
+
+
+def flat_stats(d: dict, prefix: str = "") -> dict:
+    """The numeric leaves of a scorer's (nested) dict under ``/``-joined
+    keys, rounded to 4 places, as the JAX driver logs them: VOC's per-class
+    AP and mAP or COCO's AP … ARl, and the loop's ``eval_pipeline/``
+    figures."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat_stats(v, prefix + k + "/"))
+        elif isinstance(v, (int, float)):
+            out[prefix + k] = round(float(v), 4)
+    return out
 
 
 test_rcnn.__test__ = False  # a driver, not a pytest test

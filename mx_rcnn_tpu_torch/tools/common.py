@@ -3,8 +3,8 @@
 ``get_imdb``, ``get_train_roidb``, ``init_or_load_params``,
 ``CappedLoader``, ``load_eval_params``).
 
-The dataset factory covers PASCAL VOC and the synthetic dataset; COCO
-raises until its reader is ported.  Checkpoints are the port's flat
+The dataset factory covers PASCAL VOC, COCO (``data/coco_dataset.py``,
+box evaluation) and the synthetic dataset.  Checkpoints are the port's flat
 ``{prefix}-{epoch:04d}.npz`` (``train/checkpoint.py``), de-normalized, as
 ``train_end2end`` writes them.  ``--loader-workers`` (every driver) and
 ``--prefetch`` (the training drivers, ``test`` and ``tools/test_rpn``)
@@ -27,6 +27,7 @@ import numpy as np
 
 from mx_rcnn_tpu_torch.config import (Config, generate_config, list_datasets,
                                       list_networks)
+from mx_rcnn_tpu_torch.data.coco_dataset import COCODataset
 from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from mx_rcnn_tpu_torch.logger import logger
@@ -175,8 +176,7 @@ def get_imdb(args, cfg: Config, test: bool = False):
     if name == "PascalVOC":
         return PascalVOC(image_set, args.root_path, cfg.dataset.DATASET_PATH)
     if name == "coco":
-        raise NotImplementedError("the COCO reader is not ported yet "
-                                  "(ROADMAP.md A.5.4)")
+        return COCODataset(image_set, args.root_path, cfg.dataset.DATASET_PATH)
     raise KeyError(name)
 
 

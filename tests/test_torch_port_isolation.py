@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports without JAX and without the
-JAX package, no file of it names ``jax``, ``flax``, ``orbax``, ``cv2`` or
-``mx_rcnn_tpu``, PIL is imported only inside ``get_image``'s JPEG branch,
+JAX package, no file of it names ``jax``, ``flax``, ``orbax``, ``cv2``,
+``pycocotools`` or ``mx_rcnn_tpu``, PIL is imported only inside ``get_image``'s JPEG branch,
 and its entry points (``Predictor``, ``fit``, ``train_end2end``, ``test``,
 ``serve``, ``train_alternate`` and its stage tools) never fall back to the
 CPU when asked for the card.  Plus the one test that
@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 
 PKG = pathlib.Path(mx_rcnn_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
-FORBIDDEN = ("jax", "flax", "orbax", "cv2", "mx_rcnn_tpu")
+FORBIDDEN = ("jax", "flax", "orbax", "cv2", "pycocotools", "mx_rcnn_tpu")
 
 
 def port_modules():
