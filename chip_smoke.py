@@ -9,7 +9,8 @@ Run from the repository root with no arguments::
 Phases, each printing its own lines:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), then
-   ``nvcc`` builds every kernel source of the port (``csrc/*.cu``), all
+   ``nvcc`` builds every kernel source of the port (``csrc/*.cu``) and the
+   host C++ compiler its mask library (``csrc/mxr_native.cpp``), all
    started together.
 2. Kernels vs plain versions on the same CUDA inputs: the NMS case matrix
    of ``scripts/check_pallas.py`` and the sweep's cases (chains across
@@ -173,9 +174,25 @@ Phases, each printing its own lines:
    host route at batch 1.  The NMS pair at the post-process's 160 rows ×
    300 and the assign pair at 37 800 anchors with G = 100, each against
    its plain version, timed, with its bound.
-12. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
-   shape it was timed at: the training path's, then COCO's), then the
-   last line
+12. FPN and Mask R-CNN inference at full width (``fpn_slice``): phase 11's
+   set written again with a polygon for every non-crowd annotation and a
+   compressed crowd RLE; seeded random weights of ResNet-101-FPN Mask
+   R-CNN (81 classes, the 800×1344 bucket, TEST 6000 → 300 with 100
+   detections an image, ``ROI_SAMPLING_RATIO`` 2, bf16).  ``python -m
+   mx_rcnn_tpu_torch.test --network resnet101_fpn_mask --dataset coco``
+   serial on the host route (the native C++ paste) and with
+   ``--device-postprocess`` (the device paste): box and segm stats, the NMS
+   pair once a batch in ``propose_fpn`` and once more on the device route,
+   the routes' boxes matched, images/s, the mask passes' host seconds an
+   image, peak memory, ``COCOEval`` segm's host seconds, the gt masks as
+   detections at segm AP = AR100 = 1; one batch's detections through the
+   three ``MASK_PASTE`` modes, each mask within ``MASK_FLIP_BOUND`` pixels
+   of the numpy paste's; ``propose_fpn``'s joint NMS in float32 against
+   ``nms_padded``, the NMS pair timed at the joint shape (B · 5 619 →
+   300); the serve driver refusing the network by name.
+13. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
+   shape it was timed at: the training path's, then COCO's, then FPN's
+   joint proposal), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
@@ -284,16 +301,18 @@ ALT_STEPS = 2
 # runs (the first one not timed) and the prefetch depths they compare, the
 # images of the eval split 2007_<PIPE_EVAL_SPLIT> (TRAIN_SIZES' images
 # again under new ids), and the requests through the prep pool (phase 7's
-# count, so that both p99 are read over as many requests)
+# count, so that both p99 are read over as many requests); the rate
+# batches, fit epochs and eval images are cut so that the whole smoke stays
+# near half its time limit as phases are added
 PIPE_WORKERS = 2
 PIPE_RATE_WORKERS = (0, 2, 4)
-PIPE_RATE_BATCHES = 200
+PIPE_RATE_BATCHES = 64
 PIPE_PROPOSALS = 64
 PIPE_STEPS = 2
-PIPE_FIT_EPOCHS = 5
+PIPE_FIT_EPOCHS = 3
 PIPE_PREFETCH = (0, 2)
 PIPE_EVAL_SPLIT = "pipe"
-PIPE_EVAL_IMAGES = 48
+PIPE_EVAL_IMAGES = 24
 PIPE_REQUESTS = SERVE_REQUESTS
 # the resilience slice: the synthetic images of one epoch of RES_STEPS
 # steps at BATCH (flipped), a step checkpoint every RES_SAVE_EVERY steps,
@@ -328,6 +347,14 @@ COCO_STATS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
               "AR100", "ARs", "ARm", "ARl")
 COCO_FLAGS = ["--network", "resnet101", "--dataset", "coco",
               "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}"]
+# the FPN / Mask R-CNN slice: the test driver's flags (ResNet-101-FPN Mask
+# R-CNN on the COCO preset, pixels scaled as the other slices), and the
+# pixels a mask may differ by between two paste modes (float32 products
+# rounded in another order flip pixels within an ulp of 0.5; the CPU
+# tests' bound)
+FPN_FLAGS = ["--network", "resnet101_fpn_mask", "--dataset", "coco",
+             "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}"]
+MASK_FLIP_BOUND = 3
 
 
 def log(phase: str, **kw) -> None:
@@ -3424,6 +3451,312 @@ def coco_slice(P, pretrained: str, work: str, seed: int, device=None,
     return out
 
 
+# ---- the FPN / Mask R-CNN slice -----------------------------------------------
+
+def octagon(x: float, y: float, bw: float, bh: float) -> list:
+    """A COCO polygon inside the box (x, y, bw, bh): its corners cut at a
+    quarter of each side."""
+    return [x + bw / 4, y, x + 3 * bw / 4, y, x + bw, y + bh / 4, x + bw,
+            y + 3 * bh / 4, x + 3 * bw / 4, y + bh, x + bw / 4, y + bh, x,
+            y + 3 * bh / 4, x, y + bh / 4]
+
+
+def write_coco_masks(P, root: str, seed: int) -> str:
+    """:func:`write_coco`'s set under ``root`` with segmentations: each
+    non-crowd annotation a polygon (:func:`octagon`), the crowd box a
+    compressed crowd RLE of its part inside the image.  Returns the
+    dataset path."""
+    path = write_coco(root, seed)
+    ann_file = os.path.join(path, "annotations", f"instances_{COCO_SPLIT}.json")
+    with open(ann_file) as f:
+        ann = json.load(f)
+    hw = {im["id"]: (im["height"], im["width"]) for im in ann["images"]}
+    for a in ann["annotations"]:
+        x, y, bw, bh = a["bbox"]
+        if a["iscrowd"]:
+            h, w = hw[a["image_id"]]
+            m = np.zeros((h, w), np.uint8)
+            m[int(y):int(y + bh), int(x):int(x + bw)] = 1
+            rle = P.mask_rle.encode(m)
+            a["segmentation"] = {"size": rle["size"], "counts":
+                                 P.mask_rle.counts_to_string(rle["counts"])}
+        else:
+            a["segmentation"] = [octagon(x, y, bw, bh)]
+    with open(ann_file, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def fpn_slice(P, work: str, seed: int, device=None, flags=FPN_FLAGS) -> list:
+    """FPN and Mask R-CNN inference at full width (ResNet-101-FPN Mask
+    R-CNN, 81 classes, the 800×1333 bucket padded to 800×1344, TEST 6000 →
+    300 with 100 detections an image, ``ROI_SAMPLING_RATIO`` 2, bf16
+    compute, seeded random weights) on :func:`write_coco_masks`'s set, the
+    NMS counts set to 0 just before each run and read just after:
+
+    * ``python -m mx_rcnn_tpu_torch.test --network resnet101_fpn_mask
+      --dataset coco``, serial, on the host route (``MASK_PASTE=
+      "native"``; a warm-up run first) and with ``--device-postprocess``
+      (the device paste): the box and segm stats, the NMS pair once a
+      batch in ``propose_fpn`` and once more on the device route, the
+      routes' boxes held to each other (:func:`match_routes`), images/s,
+      the mask passes' host seconds an image, peak
+      ``max_memory_allocated``; ``COCOEval(iou_type="segm")``'s host
+      seconds on the host route's results, and the gt masks as detections
+      scoring segm AP = AR100 = 1;
+    * on the first batch, the host route's detections through the mask
+      pass in each ``MASK_PASTE`` mode (``"host"``, the numpy paste, as
+      the oracle): every mask within ``MASK_FLIP_BOUND`` pixels of the
+      oracle's, each mode's host seconds an image;
+    * ``propose_fpn`` on that batch's RPN outputs in float32 (TF32 off):
+      the kernels' kept rows equal ``nms_padded``'s, and ``propose_fpn``
+      on the kernels equal to it on the plain NMS; on the bf16 main path's
+      joint candidates (B · 5 619) the NMS pair against its plain versions,
+      timed, with its bound;
+    * the serve driver refuses the FPN network by name.
+
+    Returns the NMS pair's rows at the joint proposal's shape."""
+    tstart = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    data = write_coco_masks(P, os.path.join(work, "fpn"), seed)
+    paths = ["--image_set", COCO_SPLIT, "--dataset_path", data,
+             "--root_path", os.path.join(work, "fpn_cache")]
+    on = [] if device is None else ["--device", str(device)]
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep}
+
+    def counted(fn):
+        sync()
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        sync()
+        return out, {k: f.launches for k, f in counters.items()}
+
+    prefix = os.path.join(work, "fpn_model", "mask")
+    eargs = flags + paths + on + ["--prefix", prefix, "--epoch", "1",
+                                  "--batch_images", str(BATCH),
+                                  "--eval-inflight", "0"]
+    targs = P.test_driver.parse_args(eargs)
+    cfg = P.config_from_args(targs, train=False)
+    te, net = cfg.TEST, cfg.network
+    stride = max(net.IMAGE_STRIDE, net.RPN_FEAT_STRIDE)
+    bucket = P.image_mod.bucket_shape(cfg.tpu.SCALES[0], stride)
+    got = (cfg.NUM_CLASSES, bucket, net.HAS_FPN, net.HAS_MASK,
+           cfg.tpu.ROI_SAMPLING_RATIO, te.RPN_PRE_NMS_TOP_N,
+           te.RPN_POST_NMS_TOP_N, te.MAX_PER_IMAGE, te.MASK_PASTE)
+    if got != (81, (800, 1344), True, True, 2, 6000, 300, 100, "native"):
+        fail(f"fpn: config {got}")
+    t0 = time.perf_counter()
+    model = P.build_model(cfg)
+    params = P.random_params(model, seed=seed)
+    P.save_params_npz(P.epoch_path(prefix, 1), params)
+    n_params = int(sum(v.size for v in params.values()))
+    del model, params
+    weights_s = time.perf_counter() - t0
+
+    try:
+        P.serve_driver.build_engine(P.serve_driver.parse_args(
+            flags + on + ["--prefix", prefix, "--epoch", "1",
+                          "--unix-socket", "unused"]), cfg)
+        fail("fpn: the serve driver built an engine for an FPN network")
+    except NotImplementedError as e:
+        if "serving of an FPN network" not in str(e):
+            fail(f"fpn: the serve driver refused with {e}")
+
+    # ---- evaluation through the test driver ----
+    seen = []
+    evaluate_sds = P.COCODataset.evaluate_sds
+
+    def record(self, detections, masks):
+        seen.append((detections, masks))
+        return evaluate_sds(self, detections, masks)
+
+    modes = {"warm-up": [], "serial": [],
+             "serial+devpost": ["--device-postprocess"]}
+    n_batches = -(-len(COCO_SIZES) // BATCH)
+    stats, boxes, masks, launches, peaks = {}, {}, {}, {}, {}
+    P.COCODataset.evaluate_sds = record
+    try:
+        for mode, extra in modes.items():
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            out, launches[mode] = counted(lambda: P.test_driver.test_rcnn(
+                P.test_driver.parse_args(eargs + extra)))
+            peaks[mode] = torch.cuda.max_memory_allocated() if on_card else 0
+            want = n_batches * (2 if "devpost" in mode else 1)
+            for name in counters:
+                if launches[mode][name] != want:
+                    fail(f"fpn eval [{mode}]: {name} launched "
+                         f"{launches[mode][name]} times in {n_batches} "
+                         f"batches, expected {want}")
+            for kind in ("bbox", "segm"):
+                s_ = out.get(kind, {})
+                if tuple(s_) != COCO_STATS or not all(
+                        np.isfinite(v) and -1.0 <= v <= 1.0
+                        for v in s_.values()):
+                    fail(f"fpn eval [{mode}]: {kind} stats {s_}")
+            stats[mode] = out
+            boxes[mode], masks[mode] = seen.pop()
+    finally:
+        P.COCODataset.evaluate_sds = evaluate_sds
+    matched = match_routes(boxes["serial"], boxes["serial+devpost"],
+                           te.MAX_PER_IMAGE)
+    n_masks = {m: sum(len(r) for row in mk[1:] for r in row if r)
+               for m, mk in masks.items()}
+    if n_masks["serial"] != sum(len(b) for row in boxes["serial"][1:]
+                                for b in row if b is not None):
+        fail("fpn eval: the host route's masks and boxes differ in count")
+    imdb = P.get_imdb(targs, cfg, test=True)
+    results = imdb.segmentations_to_coco(boxes["serial"], masks["serial"])
+    t0 = time.perf_counter()
+    again = P.COCOEval(imdb.ann_file, results, iou_type="segm").evaluate()
+    cocoeval_segm_s = time.perf_counter() - t0
+    if again != stats["serial"]["segm"]:
+        fail("fpn eval: COCOEval segm on the host route's results gives other "
+             "stats than the driver")
+    with open(imdb.ann_file) as f:
+        gt = [a for a in json.load(f)["annotations"] if not a["iscrowd"]]
+    perfect = P.COCOEval(imdb.ann_file, [
+        {"image_id": a["image_id"], "category_id": a["category_id"],
+         "segmentation": a["segmentation"], "score": 1.0} for a in gt],
+        iou_type="segm").evaluate()
+    if perfect["AP"] != 1.0 or perfect["AR100"] != 1.0:
+        fail(f"fpn eval: the gt masks as detections score {perfect}")
+    pipe = {m: s_["eval_pipeline"] for m, s_ in stats.items()}
+    log("fpn_eval", network=net.NETWORK, fpn=True, mask=True,
+        classes=cfg.NUM_CLASSES, bucket=list(bucket),
+        dtype=cfg.tpu.COMPUTE_DTYPE, parameters=n_params,
+        weights_s=weights_s, images=len(COCO_SIZES), batch=BATCH,
+        launches=launches,
+        launches_per_batch={m: {k: v / n_batches for k, v in c.items()}
+                            for m, c in launches.items()},
+        device_matched=matched, masks=n_masks,
+        stats={m: {k: s_[k] for k in ("bbox", "segm")}
+               for m, s_ in stats.items()},
+        imgs_per_sec={m: p["imgs_per_sec"] for m, p in pipe.items()},
+        mask_pass_s_per_image={m: p["mask_pass_s"] / p["images"]
+                               for m, p in pipe.items()},
+        mask_paste={m: ("device" if "devpost" in m else "native")
+                    for m in pipe},
+        max_memory_allocated_bytes=peaks, pipeline=pipe,
+        cocoeval_segm_host_s=cocoeval_segm_s, segm_results=len(results),
+        gt_masks_as_detections=perfect)
+
+    # ---- the paste modes on one batch, the host numpy paste the oracle ----
+    predictor = P.tester.Predictor(P.build_model(cfg),
+                                   P.load_eval_params(targs), cfg, device=dev)
+    roidb = imdb.gt_roidb()
+    loader = P.TestLoader(roidb, cfg, batch_size=BATCH)
+    loader.put = predictor.batch_put
+    batch = next(iter(loader))
+    dets = P.tester.im_detect(predictor, batch)
+    token = predictor.feats_token
+    k_all = cfg.NUM_CLASSES
+    all_boxes = [[None] * len(roidb) for _ in range(k_all)]
+    for b, (scores, dboxes, valid) in enumerate(dets):
+        pc = P.post.per_class_nms(scores, dboxes, valid, k_all, 1e-3,
+                                  te.NMS, te.MAX_PER_IMAGE)
+        for k in range(1, k_all):
+            all_boxes[k][int(batch["indices"][b])] = pc[k]
+    paste_s, pasted = {}, {}
+    for mode in ("device", "device", "native", "host"):   # device warmed
+        predictor.cfg = cfg.replace(TEST=dataclasses.replace(
+            te, MASK_PASTE=mode))
+        out = [[None] * len(roidb) for _ in range(k_all)]
+        sync()
+        t0 = time.perf_counter()
+        P.tester._mask_pass(predictor, batch, dets, all_boxes, out, roidb,
+                            te.MAX_PER_IMAGE, k_all, token=token)
+        sync()
+        paste_s[mode] = (time.perf_counter() - t0) / len(dets)
+        pasted[mode] = out
+    predictor.cfg = cfg
+    worst = {"device": 0, "native": 0}
+    n_cmp = 0
+    for k in range(1, k_all):
+        for i in range(len(roidb)):
+            for di, ref in enumerate(pasted["host"][k][i] or []):
+                oracle = P.mask_rle.decode(ref)
+                for mode in worst:
+                    d = int(np.sum(P.mask_rle.decode(
+                        pasted[mode][k][i][di]) != oracle))
+                    worst[mode] = max(worst[mode], d)
+                n_cmp += 1
+    if not n_cmp or max(worst.values()) > MASK_FLIP_BOUND:
+        fail(f"fpn paste modes: {n_cmp} masks, most pixels apart {worst}")
+    log("fpn_paste_modes", images=len(dets), masks=n_cmp,
+        max_pixels_from_host=worst, host_s_per_image=paste_s,
+        bound=MASK_FLIP_BOUND)
+
+    # ---- propose_fpn's joint NMS: kernels against the plain NMS ----
+    def joint(pred):
+        m = pred.model
+        with torch.inference_mode():
+            feats = m._pyramid(batch["images"])
+            levels = m._rpn_over_levels(feats)
+            info = torch.as_tensor(batch["im_info"], device=dev)
+            return ([P.fg_prob(c) for c, _, _ in levels],
+                    [b_ for _, b_, _ in levels], [a for _, _, a in levels],
+                    info)
+
+    cand_kw = dict(pre_nms_top_n=te.RPN_PRE_NMS_TOP_N,
+                   min_size=te.RPN_MIN_SIZE)
+    main = joint(predictor)
+    main_boxes, _, main_valid = P.fpn_candidates(*main, **cand_kw)
+    level_sizes = [int(s_.shape[1]) for s_ in main[0]]
+    del main, predictor
+    cfg32 = cfg.replace(tpu=dataclasses.replace(cfg.tpu,
+                                                COMPUTE_DTYPE="float32"))
+    pred32 = P.tester.Predictor(P.build_model(cfg32),
+                                P.load_eval_params(targs), cfg32, device=dev)
+    if on_card and (torch.backends.cudnn.allow_tf32
+                    or torch.backends.cuda.matmul.allow_tf32):
+        fail("fpn: the float32 Predictor left TF32 on")
+    rpn32 = joint(pred32)
+    b32, s32, v32 = P.fpn_candidates(*rpn32, **cand_kw)
+    ki, km = P.nms_cuda.nms_bitmask(b32, v32, te.RPN_POST_NMS_TOP_N,
+                                    te.RPN_NMS_THRESH)
+    for b in range(b32.shape[0]):
+        ri, rm = P.nms_padded(b32[b], s32[b], te.RPN_POST_NMS_TOP_N,
+                              te.RPN_NMS_THRESH, valid=v32[b])
+        if not torch.equal(ki[b][km[b]], ri[rm]):
+            fail(f"fpn float32 propose: kernel and plain NMS keep different "
+                 f"rows in image {b}")
+    prop_kw = dict(pre_nms_top_n=te.RPN_PRE_NMS_TOP_N,
+                   post_nms_top_n=te.RPN_POST_NMS_TOP_N,
+                   nms_thresh=te.RPN_NMS_THRESH, min_size=te.RPN_MIN_SIZE)
+    with torch.inference_mode():
+        k_out = P.propose_fpn(*rpn32, use_kernel=True, **prop_kw)
+        p_out = P.propose_fpn(*rpn32, use_kernel=False, **prop_kw)
+    if not all(torch.equal(x, y) for x, y in zip(k_out, p_out)):
+        fail("fpn float32 propose_fpn: kernel and plain paths differ")
+    del pred32, rpn32
+    if on_card:
+        torch.cuda.empty_cache()
+    n = int(main_boxes.shape[1])
+    rows = time_kernels(P.nms_cuda, main_boxes, main_valid,
+                        te.RPN_POST_NMS_TOP_N, te.RPN_NMS_THRESH)
+    for k in rows:
+        if k["max_abs_err"] != 0.0:
+            fail(f"{k['name']} disagrees with its plain version at the joint "
+                 f"proposal shape (max abs err {k['max_abs_err']})")
+        k.update(launches=launches["serial"][k["name"]], route="cuda",
+                 source=SOURCES[k["name"]], replaces=REPLACES[k["name"]],
+                 shape=f"fpn joint proposal: B={BATCH}, n={n} -> "
+                       f"{te.RPN_POST_NMS_TOP_N}")
+    log("times_fpn_proposal", shape={"B": BATCH, "n": n,
+                                     "levels": level_sizes,
+                                     "max_out": te.RPN_POST_NMS_TOP_N},
+        kept_float32=[int(x) for x in km.sum(1)], identical=True,
+        candidates=int(main_valid.sum()), kernels=rows)
+    log("fpn_total", seconds=time.perf_counter() - tstart)
+    return rows
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -3438,7 +3771,10 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.data import loader as loader_mod
     from mx_rcnn_tpu_torch.data import workers
     from mx_rcnn_tpu_torch.data.loader import AnchorLoader, ROIIter, TestLoader
+    from mx_rcnn_tpu_torch import native
+    from mx_rcnn_tpu_torch.data.coco_dataset import COCODataset
     from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
+    from mx_rcnn_tpu_torch.eval import mask_rle
     from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
     from mx_rcnn_tpu_torch.eval import tester
     from mx_rcnn_tpu_torch.eval.coco_eval import COCOEval
@@ -3451,7 +3787,9 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.ops.nms import (nms_padded, nms_padded_batch,
                                            rank_rows)
     from mx_rcnn_tpu_torch.ops.postprocess import per_class_rows
-    from mx_rcnn_tpu_torch.ops.proposal import propose, proposal_candidates
+    from mx_rcnn_tpu_torch.ops.proposal import (fpn_candidates, propose,
+                                                propose_fpn,
+                                                proposal_candidates)
     from mx_rcnn_tpu_torch.serve import driver as serve_driver
     from mx_rcnn_tpu_torch.telemetry import HIST_LE, quantile_from_counts
     from mx_rcnn_tpu_torch.tools import reeval
@@ -3511,6 +3849,8 @@ def main() -> int:
         cuda=torch.version.cuda)
     t0 = time.perf_counter()
     libs = P._build.build()
+    if not P.native.available():
+        fail("the host mask library did not load")
     log("build", seconds=time.perf_counter() - t0,
         libraries=sorted(p.name for p in libs.values()))
 
@@ -3686,10 +4026,15 @@ def main() -> int:
         # ---- 11. COCO at full width -------------------------------------------
         torch.cuda.empty_cache()
         coco = coco_slice(P, P.epoch_path(prefix, epoch), work, args.seed)
+
+        # ---- 12. FPN and Mask R-CNN inference at full width ---------------
+        torch.cuda.empty_cache()
+        fpn = fpn_slice(P, work, args.seed)
     log("total", seconds=time.perf_counter() - t_start)
 
-    # the main path's rows (the training shape), then the COCO shapes'
-    kernels += coco
+    # the main path's rows (the training shape), then the COCO shapes', then
+    # FPN's joint proposal
+    kernels += coco + fpn
     order = ("name", "shape", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

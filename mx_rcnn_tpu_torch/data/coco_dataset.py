@@ -8,8 +8,8 @@ and ``gt_roidb`` keeps the reference's sanitisation (crowd boxes left out,
 xywh → x1y1x2y2 clipped into the image with the legacy −1, empty boxes
 dropped), pickle-cached under the JAX package's file name.  Detections go
 out as COCO results records (xywh with the legacy +1, raw scores) and are
-scored by ``eval/coco_eval.py`` (bbox).  The mask results writeout and
-segm scoring wait for the mask path (ROADMAP.md A.10) and raise.
+scored by ``eval/coco_eval.py``; with masks (``evaluate_sds``) the RLEs
+go out as segm records and box and segm are both scored.
 """
 
 from __future__ import annotations
@@ -21,10 +21,8 @@ from typing import Dict, List
 import numpy as np
 
 from mx_rcnn_tpu_torch.data.imdb import IMDB
+from mx_rcnn_tpu_torch.eval.mask_rle import area
 from mx_rcnn_tpu_torch.logger import logger
-
-_SEGM = "COCO segm results need the mask path, which is not ported yet " \
-        "(ROADMAP.md A.10)"
 
 
 class COCODataset(IMDB):
@@ -141,7 +139,39 @@ class COCODataset(IMDB):
         return stats
 
     def segmentations_to_coco(self, detections, masks) -> list:
-        raise NotImplementedError(_SEGM)
+        """``all_boxes`` and ``all_masks`` (full-image RLE dicts row for row
+        with ``all_boxes``) → COCO segm results records: the RLE, its area
+        and the detection's score; a row without a mask is left out."""
+        results = []
+        for k in range(1, self.num_classes):
+            cat_id = self._cls_to_cat[k]
+            for i, dets in enumerate(detections[k]):
+                if dets is None or len(dets) == 0:
+                    continue
+                img_id = self._images[i]["id"]
+                row_masks = masks[k][i] or []
+                for di, d in enumerate(np.asarray(dets, np.float64)):
+                    if di >= len(row_masks) or row_masks[di] is None:
+                        continue
+                    rle = row_masks[di]
+                    results.append({
+                        "image_id": int(img_id), "category_id": int(cat_id),
+                        "segmentation": rle, "area": float(area(rle)),
+                        "score": float(d[4]),
+                    })
+        return results
 
     def evaluate_sds(self, detections, masks) -> dict:
-        raise NotImplementedError(_SEGM)
+        """Box and mask scoring of a Mask R-CNN run → ``{"bbox": the 12
+        stats, "segm": the 12 stats}``."""
+        from mx_rcnn_tpu_torch.eval.coco_eval import COCOEval
+
+        out = {"bbox": self.evaluate_detections(detections)}
+        ev = COCOEval(self.ann_file, self.segmentations_to_coco(detections,
+                                                                masks),
+                      iou_type="segm")
+        out["segm"] = ev.evaluate()
+        logger.info("COCO segm AP: %.4f (AP50 %.4f AP75 %.4f)",
+                    out["segm"]["AP"], out["segm"]["AP50"],
+                    out["segm"]["AP75"])
+        return out

@@ -1,5 +1,5 @@
-"""COCO box evaluation (counterpart of ``mx_rcnn_tpu/eval/coco_eval.py``,
-bbox only; no pycocotools).
+"""COCO box and mask evaluation (counterpart of
+``mx_rcnn_tpu/eval/coco_eval.py``; no pycocotools).
 
 The COCOeval protocol in numpy, float64 throughout:
 
@@ -14,9 +14,13 @@ The COCOeval protocol in numpy, float64 throughout:
 * AP = mean interpolated precision over the valid (category, IoU) cells,
   AR = mean of the last recall.
 
-``iou_type="segm"`` (mask IoU over RLEs) is not ported: it raises, and
-waits for the mask path (ROADMAP.md A.10).  Headline keys: AP, AP50, AP75,
-APs, APm, APl, AR1, AR10, AR100, ARs, ARm, ARl.
+``iou_type="segm"`` matches by mask IoU: each ``segmentation`` (polygons,
+count-list or compressed RLE) becomes an RLE over its image
+(``eval/mask_rle.py:ann_to_rle``), the IoUs come from the native
+run-merge (``native.rle_iou``, which raises when the host library is
+unavailable), and a detection's area is its ``area`` field or its mask's.
+Headline keys: AP, AP50, AP75, APs, APm, APl, AR1, AR10, AR100, ARs, ARm,
+ARl.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ from collections import defaultdict
 from typing import Dict, List
 
 import numpy as np
+
+from mx_rcnn_tpu_torch.eval.mask_rle import ann_to_rle, area
+from mx_rcnn_tpu_torch.native import rle_iou
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -65,11 +72,7 @@ class COCOEval:
 
     def __init__(self, ann_file: str, results: List[dict],
                  iou_type: str = "bbox"):
-        if iou_type == "segm":
-            raise NotImplementedError(
-                "COCO segm evaluation needs the mask path, which is not "
-                "ported yet (ROADMAP.md A.10)")
-        if iou_type != "bbox":
+        if iou_type not in ("bbox", "segm"):
             raise ValueError(iou_type)
         self.iou_type = iou_type
         with open(ann_file) as f:
@@ -101,10 +104,19 @@ class COCOEval:
         d_order = np.argsort([-d["score"] for d in dts], kind="stable")
         dts = [dts[i] for i in d_order]
         iscrowd = np.asarray([g.get("iscrowd", 0) for g in gts], bool)
-        dt = np.asarray([d["bbox"] for d in dts], np.float64).reshape(-1, 4)
-        gt = np.asarray([g["bbox"] for g in gts], np.float64).reshape(-1, 4)
-        ious = bbox_iou_xywh(dt, gt, iscrowd)
-        d_area = dt[:, 2] * dt[:, 3]
+        if self.iou_type == "bbox":
+            dt = np.asarray([d["bbox"] for d in dts], np.float64).reshape(-1, 4)
+            gt = np.asarray([g["bbox"] for g in gts], np.float64).reshape(-1, 4)
+            ious = bbox_iou_xywh(dt, gt, iscrowd)
+            d_area = dt[:, 2] * dt[:, 3]
+        else:
+            im = self.imgs[img_id]
+            h, w = im["height"], im["width"]
+            dr = [ann_to_rle(d["segmentation"], h, w) for d in dts]
+            gr = [ann_to_rle(g["segmentation"], h, w) for g in gts]
+            ious = rle_iou(dr, gr, iscrowd)
+            d_area = np.asarray([d.get("area") or area(r)
+                                 for d, r in zip(dts, dr)], np.float64)
         out = (dts, gts, ious, d_area)
         self._cache[key] = out
         return out

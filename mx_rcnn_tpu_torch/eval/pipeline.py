@@ -9,15 +9,21 @@ decoded and NMSed on the host.
   copies; the host task waits on that event, the dispatching thread never
   does.  On the CPU the outputs are host tensors already.
 * Host work (decode + per-class NMS, or the device route's per-class
-  split) runs on a ``host_workers``-wide thread pool; results are
-  addressed by image index, so ``all_boxes`` is bit-identical to the
-  serial loop at any depth.
+  split, then on a mask model the mask pass) runs on a
+  ``host_workers``-wide thread pool; results are addressed by image index,
+  so ``all_boxes`` and ``all_masks`` are bit-identical to the serial loop
+  at any depth.
+* Mask models: the next forward replaces the ``Predictor``'s cached
+  pyramid, so each dispatch takes ``capture_feats()`` — the batch's own
+  pyramid and token — and its host task hands that to the mask pass
+  (``predict_masks_*(..., feats=...)``): batch N's masks come from batch
+  N's features while N+1 is in flight.
 
 ``inflight=1`` degenerates to the serial order; ``inflight=2`` is double
 buffering, the default (``cfg.tpu.EVAL_INFLIGHT``).  A batch arrives on the
 device: the loader's ``put`` hook copied it, on the prefetch thread when
 there is one; ``loader_wait_s`` is the wait for it.  Not
-ported: the mask pass, drawing and the telemetry spans.
+ported: drawing and the telemetry spans.
 """
 
 from __future__ import annotations
@@ -37,13 +43,15 @@ from mx_rcnn_tpu_torch.ops.postprocess import (decode_image_boxes,
 class _InFlight:
     """One dispatched batch whose host copies are in flight."""
 
-    __slots__ = ("batch", "host", "event", "n_valid")
+    __slots__ = ("batch", "host", "event", "n_valid", "feats", "token")
 
-    def __init__(self, batch, host, event, n_valid):
+    def __init__(self, batch, host, event, n_valid, feats, token):
         self.batch = batch
         self.host = host          # host tensors the outputs are copied into
         self.event = event        # CUDA event after the copies, or None
         self.n_valid = n_valid
+        self.feats = feats        # the batch's pyramid (mask models) or None
+        self.token = token
 
 
 def _to_host(arrays):
@@ -62,14 +70,19 @@ def _to_host(arrays):
 
 def run_pipelined(predictor, test_loader, *, all_boxes, num_classes,
                   max_per_image, thresh, nms_thresh, device_postprocess,
-                  inflight, host_workers, progress) -> dict:
-    """Drive the overlapped loop; fills ``all_boxes`` in place and returns
-    the stats ``pred_eval`` reports (seconds: ``loader_wait_s``, the
-    host tasks' ``readback_wait_s`` on the copies and ``host_post_s`` in
-    all, and ``post_wait_s``, the dispatching thread's wait on them).
-    The loader's batches arrive on the device (``pred_eval`` installs
-    ``Predictor.batch_put`` as its ``put`` hook)."""
+                  inflight, host_workers, progress, all_masks=None) -> dict:
+    """Drive the overlapped loop; fills ``all_boxes`` (and ``all_masks``
+    when given: the mask pass runs) in place and returns the stats
+    ``pred_eval`` reports (seconds: ``loader_wait_s``, the host tasks'
+    ``readback_wait_s`` on the copies, ``mask_pass_s`` in their mask
+    passes and ``host_post_s`` in all, and ``post_wait_s``, the
+    dispatching thread's wait on them).  The loader's batches arrive on
+    the device (``pred_eval`` installs ``Predictor.batch_put`` as its
+    ``put`` hook)."""
+    from mx_rcnn_tpu_torch.eval.tester import _mask_pass
+
     mode = "pipelined+devpost" if device_postprocess else "pipelined"
+    with_masks = all_masks is not None
     inflight = max(int(inflight), 1)
     window: deque = deque()   # dispatched, not yet handed to the pool
     pending: deque = deque()  # host futures, in submission order
@@ -78,6 +91,7 @@ def run_pipelined(predictor, test_loader, *, all_boxes, num_classes,
     readback_wait = 0.0
     host_post = 0.0
     post_wait = 0.0
+    mask_s = 0.0
     pool = ThreadPoolExecutor(max_workers=max(int(host_workers), 1),
                               thread_name_prefix="eval-post")
 
@@ -87,10 +101,12 @@ def run_pipelined(predictor, test_loader, *, all_boxes, num_classes,
                 batch["images"], batch["im_info"], max_per_image, thresh)
         else:
             arrays = predictor.predict(batch["images"], batch["im_info"])[:4]
+        feats, token = (predictor.capture_feats() if with_masks
+                        else (None, None))
         host, event = _to_host(arrays)
         bv = batch.get("batch_valid")
         n_valid = int(np.sum(bv)) if bv is not None else int(host[0].shape[0])
-        window.append(_InFlight(batch, host, event, n_valid))
+        window.append(_InFlight(batch, host, event, n_valid, feats, token))
 
     def host_task(entry: _InFlight) -> tuple:
         t_start = time.perf_counter()
@@ -100,6 +116,7 @@ def run_pipelined(predictor, test_loader, *, all_boxes, num_classes,
         host = [t.numpy() for t in entry.host]
         indices = entry.batch["indices"]
         im_info = np.asarray(entry.batch["im_info"])
+        rows = []
         for b in range(entry.n_valid):
             if device_postprocess:
                 dets_pc = device_dets_to_per_class(host[0][b], host[1][b],
@@ -113,18 +130,27 @@ def run_pipelined(predictor, test_loader, *, all_boxes, num_classes,
             i = int(indices[b])
             for k in range(1, num_classes):
                 all_boxes[k][i] = dets_pc[k]
+            rows.append(dets_pc)
+        t_mask = time.perf_counter()
+        if with_masks:
+            _mask_pass(predictor, entry.batch, rows, all_boxes, all_masks,
+                       test_loader.roidb, max_per_image, num_classes,
+                       token=entry.token, feats=entry.feats)
+            entry.feats = None   # release the pyramid
         now = time.perf_counter()
-        return entry.n_valid, now - t_start, t_ready - t_start
+        return (entry.n_valid, now - t_start, t_ready - t_start,
+                now - t_mask)
 
     def finish_oldest() -> None:
         pending.append(pool.submit(host_task, window.popleft()))
 
     def account(res) -> None:
-        nonlocal done, host_post, readback_wait
-        n, dt, wait = res
+        nonlocal done, host_post, readback_wait, mask_s
+        n, dt, wait, masks = res
         done += n
         host_post += dt
         readback_wait += wait
+        mask_s += masks
         progress.update(done)
 
     def reap_done() -> None:
@@ -167,5 +193,6 @@ def run_pipelined(predictor, test_loader, *, all_boxes, num_classes,
         pool.shutdown(wait=True)
     return {"mode": mode, "images": done, "loader_wait_s": loader_wait,
             "readback_wait_s": readback_wait, "host_post_s": host_post,
+            "mask_pass_s": mask_s,
             "post_wait_s": post_wait, "inflight": inflight,
             "host_workers": int(host_workers)}

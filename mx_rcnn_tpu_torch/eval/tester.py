@@ -1,6 +1,7 @@
 """Inference and evaluation driver (counterpart of
 ``mx_rcnn_tpu/eval/tester.py``: ``Predictor``, ``predict``,
-``predict_detections``, ``im_detect``, ``_im_detect_device``,
+``predict_detections``, the pyramid cache and mask entry points,
+``im_detect``, ``_im_detect_device``, ``paste_mask``, ``_mask_pass``,
 ``_Progress``, ``pred_eval``, ``generate_proposals``).
 
 ``Predictor`` binds converted weights to a model on one device;
@@ -11,9 +12,16 @@ serve engine's entry points are :meth:`Predictor.put_staged` (one
 host→device copy of a staged batch), :meth:`Predictor.predict_staged`
 and :meth:`Predictor.predict_serve_e2e` (one call each per batch) and
 :meth:`Predictor.fetch` (one readback); the engine keeps the
-first-dispatch bookkeeping.  The JAX package's persistent program cache,
-mesh plans, int8 variants, mask pass, drawing and telemetry spans are not
-ported yet (ROADMAP.md).
+first-dispatch bookkeeping.
+
+Mask R-CNN (``HAS_MASK``): :meth:`Predictor.predict` and
+:meth:`Predictor.predict_detections` keep the batch's pyramid, so that the
+mask branch runs on the final detections without the body again;
+``pred_eval(with_masks=True)`` pastes each detection's 28×28 mask into
+its image as an RLE (``_mask_pass``, by ``TEST.MASK_PASTE``) and scores
+box and segm (``imdb.evaluate_sds``).  The JAX package's persistent
+program cache, mesh plans, int8 variants, drawing and telemetry spans are
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,10 +34,12 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from mx_rcnn_tpu_torch import native
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.data.image import prep_images
+from mx_rcnn_tpu_torch.eval.mask_rle import encode
 from mx_rcnn_tpu_torch.logger import logger
-from mx_rcnn_tpu_torch.models.detector import FasterRCNN
+from mx_rcnn_tpu_torch.ops.mask_paste import paste_masks
 from mx_rcnn_tpu_torch.ops.postprocess import (decode_image_boxes,
                                                device_dets_to_per_class,
                                                device_postprocess,
@@ -63,8 +73,8 @@ class Predictor:
     convolutions in TF32.
     """
 
-    def __init__(self, model: FasterRCNN, params: Union[Dict[str, np.ndarray],
-                                                        str, os.PathLike],
+    def __init__(self, model: torch.nn.Module,
+                 params: Union[Dict[str, np.ndarray], str, os.PathLike],
                  cfg: Config, device=None, dtype: str = "float32"):
         if dtype not in INFER_DTYPES:
             raise ValueError(f"infer dtype must be one of {INFER_DTYPES}, "
@@ -81,6 +91,14 @@ class Predictor:
         net = cfg.network
         self._means = self._put(np.asarray(net.PIXEL_MEANS, np.float32))
         self._stds = self._put(np.asarray(net.PIXEL_STDS, np.float32))
+        self._has_mask = bool(net.HAS_MASK)
+        # the pyramid of the last forward (mask models) and its batch's
+        # identity, (images shape, forward count): the cached mask entry
+        # points check it, so a reordered caller fails instead of reading
+        # another batch's features
+        self._feats = None
+        self._feats_token = None
+        self._predict_count = 0
 
     def _bind(self, params) -> None:
         """Copy ``params`` into the model's tensors, where they lie, with
@@ -98,6 +116,8 @@ class Predictor:
         first dispatch follows.  The caller makes sure that no forward is
         in flight."""
         self._bind(params)
+        self._feats = None  # the cached pyramid belongs to the old weights
+        self._feats_token = None
 
     def batch_put(self, batch: dict) -> dict:
         """Move a batch to the device.  A staged raw batch (keys
@@ -169,12 +189,88 @@ class Predictor:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device, dtype)
 
+    def _forward(self, images, info):
+        """The model's ``predict``; on a mask model ``predict_with_feats``,
+        its pyramid kept for this batch's mask pass."""
+        self._predict_count += 1
+        self._feats_token = (tuple(images.shape), self._predict_count)
+        if self._has_mask:
+            out, self._feats = self.model.predict_with_feats(images, info)
+            return out
+        return self.model.predict(images, info)
+
     @torch.inference_mode()
     def predict(self, images, im_info):
-        """``FasterRCNN.predict`` on the device → ``(rois, roi_valid,
-        cls_prob, bbox_deltas, roi_scores)``, tensors on the device."""
-        return self.model.predict(self._put(images),
-                                  self._put(im_info, torch.float32))
+        """The model's ``predict`` on the device → ``(rois, roi_valid,
+        cls_prob, bbox_deltas, roi_scores)``, tensors on the device; a mask
+        model keeps the batch's pyramid (:meth:`capture_feats`)."""
+        return self._forward(self._put(images),
+                             self._put(im_info, torch.float32))
+
+    @property
+    def feats_token(self):
+        """The identity of the batch whose pyramid is cached: take it right
+        after :meth:`predict` and hand it to the cached mask entry
+        points."""
+        return self._feats_token
+
+    def capture_feats(self):
+        """``(pyramid, token)`` of the last forward: a handle that stays
+        valid after the next forward replaces the cache, so the overlapped
+        loop runs batch N's mask pass while batch N+1 is in flight."""
+        return self._feats, self._feats_token
+
+    def _check_token(self, token) -> None:
+        if token != self._feats_token:
+            raise AssertionError(
+                f"stale pyramid cache: predict() was last called on batch "
+                f"{self._feats_token}, not {token}; run predict() on the "
+                f"batch whose masks you want (pass predictor.feats_token "
+                f"taken right after predict())")
+
+    def _cached(self, token, feats):
+        if not self._has_mask:
+            raise ValueError("the model has no mask head")
+        if feats is None:
+            if self._feats is None:
+                raise AssertionError("call predict() on this batch first")
+            self._check_token(token)
+            feats = self._feats
+        return feats
+
+    @torch.inference_mode()
+    def predict_masks(self, images, im_info, boxes, labels):
+        """Boxes (B, R, 4) in the scaled frame and labels (B, R) → (B, R,
+        28, 28) mask probabilities on the device, the pyramid computed
+        again from ``images`` (right for any batch)."""
+        if not self._has_mask:
+            raise ValueError("the model has no mask head")
+        return self.model.predict_masks(
+            self._put(images), self._put(im_info, torch.float32),
+            self._put(boxes, torch.float32), self._put(labels, torch.int64))
+
+    @torch.inference_mode()
+    def predict_masks_cached(self, boxes, labels, token, feats=None):
+        """The mask branch over the pyramid of the preceding forward, which
+        ``token`` (:attr:`feats_token` of that call) must name; a ``feats``
+        from :meth:`capture_feats` is used instead, and then no check is
+        needed.  → (B, R, 28, 28) float32 on the device."""
+        feats = self._cached(token, feats)
+        return self.model.masks_from_feats(
+            feats, self._put(boxes, torch.float32),
+            self._put(labels, torch.int64))
+
+    @torch.inference_mode()
+    def predict_masks_packed(self, boxes, labels, orig_boxes, hp: int,
+                             wp: int, token, feats=None):
+        """The mask branch and the paste on the device: scaled-frame
+        ``boxes`` feed ROIAlign, original-frame ``orig_boxes`` place the
+        masks in the padded (hp, wp) frame → (B, R, wp, hp // 8) packed
+        bits on the device (``ops/mask_paste.py``); ``token``/``feats`` as
+        in :meth:`predict_masks_cached`."""
+        probs = self.predict_masks_cached(boxes, labels, token, feats)
+        return paste_masks(probs, self._put(orig_boxes, torch.float32),
+                           hp, wp)
 
     @torch.inference_mode()
     def predict_rpn(self, images, im_info):
@@ -217,8 +313,8 @@ class Predictor:
                                 thresh)
 
     def _detections(self, images, info, max_per_image, thresh):
-        rois, roi_valid, cls_prob, bbox_deltas, _ = self.model.predict(
-            images, info)
+        rois, roi_valid, cls_prob, bbox_deltas, _ = self._forward(images,
+                                                                  info)
         cfg = self.cfg
         return device_postprocess(
             rois.float(), roi_valid, cls_prob.float(), bbox_deltas.float(),
@@ -286,6 +382,128 @@ def generate_proposals(predictor: Predictor, test_loader, roidb: list,
     return roidb
 
 
+def _resize_coeffs(n_src: int, n_dst: int):
+    """Per output pixel of a linear resize from ``n_src`` to ``n_dst``
+    pixels: the two source pixels and their float32 weights, as
+    ``cv2.resize``'s ``INTER_LINEAR`` sets them up for float images
+    (source ``(j + 0.5) · scale − 0.5`` in double, then float; clamped to
+    the edge pixel with weight 0 past either end)."""
+    scale = 1.0 / (n_dst / n_src)
+    fx = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    sx = np.floor(fx)
+    fx = (fx - sx).astype(np.float32)
+    sx = sx.astype(np.int64)
+    edge = (sx < 0) | (sx >= n_src - 1)
+    fx[edge] = 0.0
+    sx = np.clip(sx, 0, n_src - 1)
+    return sx, np.minimum(sx + 1, n_src - 1), np.float32(1.0) - fx, fx
+
+
+def paste_mask(prob: np.ndarray, box, h: int, w: int) -> np.ndarray:
+    """One (M, M) mask probability map → its (h, w) uint8 binary mask at
+    ``box`` (original frame, [x1, y1, x2, y2]): resized to the integer
+    window [floor(x1), ceil(x2)] × [floor(y1), ceil(y2)] by a linear
+    resize in float32 (rows first, then columns, as ``cv2.resize``
+    ``INTER_LINEAR`` does; the JAX package calls cv2 here), thresholded at
+    0.5 and clipped to the frame."""
+    prob = np.asarray(prob, np.float32)
+    m = prob.shape[0]
+    x1, y1 = int(np.floor(box[0])), int(np.floor(box[1]))
+    x2, y2 = int(np.ceil(box[2])), int(np.ceil(box[3]))
+    bw, bh = max(x2 - x1 + 1, 1), max(y2 - y1 + 1, 1)
+    c0, c1, a0, a1 = _resize_coeffs(m, bw)
+    r0, r1, b0, b1 = _resize_coeffs(m, bh)
+    rows = prob[:, c0] * a0 + prob[:, c1] * a1               # (M, bw)
+    resized = rows[r0] * b0[:, None] + rows[r1] * b1[:, None]  # (bh, bw)
+    out = np.zeros((h, w), np.uint8)
+    ox1, oy1 = max(x1, 0), max(y1, 0)
+    ox2, oy2 = min(x2 + 1, w), min(y2 + 1, h)
+    if ox2 > ox1 and oy2 > oy1:
+        out[oy1:oy2, ox1:ox2] = (
+            resized[oy1 - y1:oy2 - y1, ox1 - x1:ox2 - x1] >= 0.5)
+    return out
+
+
+MASK_PASTE_MODES = ("native", "device", "host")
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def _mask_pass(predictor: Predictor, batch: dict, dets: list, all_boxes,
+               all_masks, roidb: list, max_per_image: int, num_classes: int,
+               token=None, feats=None) -> None:
+    """The mask branch on one batch's final detections: ``all_masks[k][i]``
+    gets one full-image RLE dict per row of ``all_boxes[k][i]``.
+
+    ``cfg.TEST.MASK_PASTE`` picks the paste: ``"native"`` reads back the
+    (R, 28, 28) probabilities and pastes and encodes each in C++
+    (``native.paste_rle``; raises when the library is unavailable);
+    ``"device"`` pastes on the card and reads back packed bits, encoded in
+    C++ (``native.rle_encode_packed``); ``"host"`` is :func:`paste_mask`
+    and ``mask_rle.encode`` in numpy, the oracle of the other two.  Up to
+    ``max_per_image`` (or 100 without a cap) detections an image go
+    through the branch at once; more are drained in further passes.
+    ``token``/``feats``: the pyramid of this batch's forward (see
+    :meth:`Predictor.predict_masks_cached`)."""
+    if not dets:
+        return
+    mode = predictor.cfg.TEST.MASK_PASTE
+    if mode not in MASK_PASTE_MODES:
+        raise ValueError(f"TEST.MASK_PASTE must be one of "
+                         f"{MASK_PASTE_MODES}, got {mode!r}")
+    im_info = np.asarray(batch["im_info"])
+    indices = batch["indices"]
+    b_all = batch["images"].shape[0]   # the padded batch; dets: valid rows
+    r_cap = max_per_image if max_per_image > 0 else 100
+    if mode == "device":
+        # the padded original frame of every image of the batch, in
+        # multiples of 128 (few shapes; the encoder's 64-bit columns)
+        hp = _round_up(max(roidb[int(indices[b])]["height"]
+                           for b in range(len(dets))), 128)
+        wp = _round_up(max(roidb[int(indices[b])]["width"]
+                           for b in range(len(dets))), 128)
+    queues = [[] for _ in range(b_all)]    # (class, image, row) a batch row
+    for b in range(len(dets)):
+        i = int(indices[b])
+        for k in range(1, num_classes):
+            queues[b] += [(k, i, di) for di in range(len(all_boxes[k][i]))]
+    while any(queues):
+        mboxes = np.zeros((b_all, r_cap, 4), np.float32)   # scaled frame
+        morig = np.zeros((b_all, r_cap, 4), np.float32)    # original frame
+        mlabels = np.zeros((b_all, r_cap), np.int64)
+        taken = []
+        for b in range(b_all):
+            taken.append(queues[b][:r_cap])
+            queues[b] = queues[b][r_cap:]
+            for r, (k, i, di) in enumerate(taken[b]):
+                morig[b, r] = all_boxes[k][i][di][:4]
+                mboxes[b, r] = morig[b, r] * im_info[b, 2]
+                mlabels[b, r] = k
+        if mode == "device":
+            packed = predictor.fetch(predictor.predict_masks_packed(
+                mboxes, mlabels, morig, hp, wp, token, feats))
+        else:
+            probs = predictor.fetch(predictor.predict_masks_cached(
+                mboxes, mlabels, token, feats))
+        for b in range(b_all):
+            for r, (k, i, di) in enumerate(taken[b]):
+                h, w = roidb[i]["height"], roidb[i]["width"]
+                box = all_boxes[k][i][di][:4]
+                if mode == "device":
+                    rle = {"size": [h, w], "counts":
+                           native.rle_encode_packed(packed[b, r], h, w)}
+                elif mode == "native":
+                    rle = {"size": [h, w], "counts":
+                           native.paste_rle(probs[b, r], box, h, w)}
+                else:
+                    rle = encode(paste_mask(probs[b, r], box, h, w))
+                if all_masks[k][i] is None:
+                    all_masks[k][i] = [None] * len(all_boxes[k][i])
+                all_masks[k][i][di] = rle
+
+
 class _Progress:
     """Eval progress: one log line per ``every`` images, whatever the batch
     size and the order batches complete in."""
@@ -346,6 +564,12 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
     [x1,y1,x2,y2,score] after the per-class score threshold, NMS and the
     per-image cap; then ``imdb.evaluate_detections``.
 
+    ``with_masks`` (a mask model): each batch's final detections go through
+    the mask branch (``_mask_pass``, ``TEST.MASK_PASTE``), and box and segm
+    are scored by ``imdb.evaluate_sds`` → ``{"bbox": …, "segm": …}``; a
+    dataset without segm scoring (PASCAL VOC) scores boxes only, with a
+    warning, as the JAX package does.
+
     ``det_cache``: pickle the final ``all_boxes`` there (probed before the
     loop, written through a rename after it) for ``tools/reeval.py``.
 
@@ -367,17 +591,15 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
     its read and copy).
 
     Returns the scorer's dict, plus ``"eval_pipeline"``: the loop's
-    mode, images, wall time, images per second, loader wait and, for the
-    overlapped loop, its readback wait, host post-process time, the time
-    the loop waited on it and the overlap fraction
+    mode, images, wall time, images per second, loader wait, the mask
+    passes' seconds (``mask_pass_s``) and, for the overlapped loop, its
+    readback wait, host post-process time (the mask passes included), the
+    time the loop waited on it and the overlap fraction
     ``1 − post_wait / host_post``.
     """
     if vis:
         raise NotImplementedError("pred_eval(vis=True): drawing needs cv2 "
                                   "and is not ported")
-    if with_masks:
-        raise NotImplementedError("pred_eval(with_masks=True): the mask "
-                                  "branch is not ported (ROADMAP.md A.7)")
     if not hasattr(test_loader, "put"):
         raise TypeError(f"pred_eval: {type(test_loader).__name__} has no "
                         f"put hook (the TestLoader contract)")
@@ -392,6 +614,11 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
         host_workers = cfg.tpu.EVAL_HOST_WORKERS
     num_classes = imdb.num_classes
     num_images = imdb.num_images
+    with_masks = with_masks and cfg.network.HAS_MASK
+    if with_masks and not hasattr(imdb, "evaluate_sds"):
+        logger.warning("%s has no segm evaluation; scoring boxes only",
+                       type(imdb).__name__)
+        with_masks = False
     if det_cache:
         _probe_det_cache(det_cache)
 
@@ -399,18 +626,22 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
 
     all_boxes: List[List] = [[None for _ in range(num_images)]
                              for _ in range(num_classes)]
+    all_masks: Optional[List[List]] = (
+        [[None for _ in range(num_images)] for _ in range(num_classes)]
+        if with_masks else None)
     progress = _Progress(num_images)
     stats: dict = {}
+    mask_s = 0.0
     if inflight and int(inflight) > 0:
         from mx_rcnn_tpu_torch.eval.pipeline import run_pipelined
         stats = run_pipelined(
-            predictor, test_loader, all_boxes=all_boxes,
+            predictor, test_loader, all_boxes=all_boxes, all_masks=all_masks,
             num_classes=num_classes, max_per_image=max_per_image,
             thresh=thresh, nms_thresh=cfg.TEST.NMS,
             device_postprocess=device_postprocess, inflight=int(inflight),
             host_workers=int(host_workers), progress=progress)
         done, loader_wait = stats["images"], stats["loader_wait_s"]
-        mode = stats["mode"]
+        mode, mask_s = stats["mode"], stats["mask_pass_s"]
     else:
         mode = "serial+devpost" if device_postprocess else "serial"
         done = 0
@@ -440,13 +671,19 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
                 for k in range(1, num_classes):
                     all_boxes[k][i] = dets_pc[k]
                 done += 1
+            if with_masks:
+                t_mask = time.perf_counter()
+                _mask_pass(predictor, batch, dets, all_boxes, all_masks,
+                           test_loader.roidb, max_per_image, num_classes,
+                           token=predictor.feats_token)
+                mask_s += time.perf_counter() - t_mask
             progress.update(done)
     wall = time.perf_counter() - progress.t0
     rate = done / max(wall, 1e-9)
     host_post = stats.get("host_post_s", 0.0)
     post_wait = stats.get("post_wait_s", 0.0)
     meta = dict(mode=mode, images=done, imgs_per_sec=rate, wall_s=wall,
-                loader_wait_s=loader_wait,
+                loader_wait_s=loader_wait, mask_pass_s=mask_s,
                 readback_wait_s=stats.get("readback_wait_s", 0.0),
                 host_post_s=host_post, post_wait_s=post_wait,
                 overlap_frac=(max(0.0, 1.0 - post_wait / host_post)
@@ -458,6 +695,7 @@ def pred_eval(predictor: Predictor, test_loader, imdb,
                 rate, meta["overlap_frac"])
     if det_cache:
         _write_det_cache(det_cache, all_boxes)
-    out = imdb.evaluate_detections(all_boxes)
+    out = (imdb.evaluate_sds(all_boxes, all_masks) if with_masks
+           else imdb.evaluate_detections(all_boxes))
     out["eval_pipeline"] = meta
     return out

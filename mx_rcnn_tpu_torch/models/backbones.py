@@ -1,7 +1,7 @@
 """ResNet backbone with frozen BN (counterpart of
 ``mx_rcnn_tpu/models/backbones.py``: ``StemConvS2D``, ``FrozenBN``,
-``ScaledConv``, ``Bottleneck``, ``ResNetStage``, ``ResNetConv``,
-``ResNetStage5``).
+``ScaledConv``, ``Bottleneck``, ``ResNetStage``, ``ResNetConv`` with
+``all_stages``, ``ResNetStage5``).
 
 Modules take and return NHWC at their boundary, like the JAX package; the
 convolutions run on the NCHW view of the same memory (``channels_last``),
@@ -152,24 +152,35 @@ class ResNetStage(nn.Module):
 
 class ResNetConv(nn.Module):
     """Stages 1–4 of the ResNet body: NHWC (B, H, W, 3|12) → stride-16,
-    1024-channel NHWC features."""
+    1024-channel NHWC features.  With ``all_stages`` (FPN) the body also
+    holds ``stage4`` and returns the pyramid ``(C2, C3, C4, C5)`` at
+    strides 4–32 (256 … 2048 channels), as the JAX ``ResNetConv(
+    all_stages=True)`` does."""
 
     def __init__(self, depth: str = "resnet50",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, all_stages: bool = False):
         super().__init__()
         units = RESNET_UNITS[depth]
         self.dtype = dtype
+        self.all_stages = all_stages
         self.conv1 = StemConvS2D(64, dtype)
         self.stage1 = ResNetStage(units[0], 64, 64, 1, dtype)
         self.stage2 = ResNetStage(units[1], 256, 128, 2, dtype)
         self.stage3 = ResNetStage(units[2], 512, 256, 2, dtype)
+        if all_stages:
+            self.stage4 = ResNetStage(units[3], 1024, 512, 2, dtype)
 
     def forward(self, x):
         x = nhwc_to_nchw(x.to(self.dtype))
         x = F.relu(self.conv1(x))
         x = F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf, like flax
-        x = self.stage3(self.stage2(self.stage1(x)))
-        return nchw_to_nhwc(x)
+        c2 = self.stage1(x)
+        c3 = self.stage2(c2)
+        c4 = self.stage3(c3)
+        if not self.all_stages:
+            return nchw_to_nhwc(c4)
+        c5 = self.stage4(c4)
+        return tuple(nchw_to_nhwc(c) for c in (c2, c3, c4, c5))
 
 
 class ResNetStage5(nn.Module):

@@ -13,8 +13,9 @@ the TRAIN settings → gt appended → ``sample_rois`` → the R-CNN head on the
 sampled RoIs → the four losses.  Labels, targets and proposals carry no
 gradient; everything else is autograd.  ``rpn_train`` and ``rcnn_train``
 are the alternate-training graphs: the RPN half with its losses, and the
-R-CNN half on given proposals.  Classic ResNet only; VGG, FPN and Mask
-wait for later slices.
+R-CNN half on given proposals.  Classic ResNet only; ``build_model`` hands
+FPN and Mask R-CNN configs to ``models/fpn.py`` (inference); VGG waits
+for a later slice.
 """
 
 from __future__ import annotations
@@ -250,8 +251,13 @@ class FasterRCNN(nn.Module):
         return self._proposals(self.backbone(images), im_info)
 
 
-def build_model(cfg: Config) -> FasterRCNN:
-    if cfg.network.HAS_FPN or cfg.network.HAS_MASK:
-        raise NotImplementedError(
-            "FPN and Mask R-CNN are not ported yet; see ROADMAP.md")
+def build_model(cfg: Config) -> nn.Module:
+    """``FasterRCNN``, or ``models/fpn.py:FPNFasterRCNN`` for the FPN and
+    Mask R-CNN presets (``HAS_FPN``)."""
+    if cfg.network.HAS_FPN:
+        from mx_rcnn_tpu_torch.models.fpn import FPNFasterRCNN
+        return FPNFasterRCNN(cfg)
+    if cfg.network.HAS_MASK:
+        raise ValueError("HAS_MASK needs HAS_FPN: the mask head pools from "
+                         "the pyramid")
     return FasterRCNN(cfg)

@@ -1,5 +1,6 @@
 """Proposal generation (RPN output → RoIs), counterpart of
-``mx_rcnn_tpu/ops/proposal.py:propose`` with the batch written out.
+``mx_rcnn_tpu/ops/proposal.py:propose`` and ``propose_fpn`` with the batch
+written out.
 
 Per image: decode the per-anchor deltas (``bbox_pred``), clip to the
 image, drop boxes smaller than ``min_size · im_scale`` on either side,
@@ -7,6 +8,14 @@ keep the top ``pre_nms_top_n`` by fg score, greedy NMS, keep the top
 ``post_nms_top_n``.  The output has a static size: padded slots hold the
 box of kept index 0 and the mask tells the truth (the duplicate-pad
 contract of the JAX package).
+
+FPN (:func:`propose_fpn`): the same per level, each level cut to
+``pre_nms_top_n // levels``, then the levels' candidates concatenated,
+sorted jointly by score and put through ONE NMS.  The JAX package's
+two-stage ``_level_topk`` picks the same elements in the same order as a
+stable descending sort (lax.top_k puts the lower index first among equal
+scores, so the union of the rows' top-k, cut again, is the global top-k
+in (score, index) order); the port sorts once.
 
 The NMS is the CUDA bitmask kernel (``kernels/nms_cuda.py:nms_bitmask``),
 one launch of each of its two kernels for the whole batch, when
@@ -73,6 +82,52 @@ def propose(scores: torch.Tensor, bbox_deltas: torch.Tensor,
     top_boxes, top_scores, top_valid = proposal_candidates(
         scores, bbox_deltas, anchors, im_info, pre_nms_top_n=pre_nms_top_n,
         min_size=min_size)
+    return _nms_gather(top_boxes, top_scores, top_valid, post_nms_top_n,
+                       nms_thresh, use_kernel)
+
+
+def fpn_candidates(level_scores, level_deltas, level_anchors,
+                   im_info: torch.Tensor, *, pre_nms_top_n: int = 12000,
+                   min_size: int = 16):
+    """The joint NMS input of :func:`propose_fpn`: each level's
+    :func:`proposal_candidates` at ``max(pre_nms_top_n // levels, 1)``,
+    concatenated in level order and stably sorted by score, descending →
+    ``(boxes (B, k, 4) contiguous, scores (B, k), valid (B, k))``."""
+    k_level = max(pre_nms_top_n // len(level_scores), 1)
+    parts = [proposal_candidates(s, d, a, im_info, pre_nms_top_n=k_level,
+                                 min_size=min_size)
+             for s, d, a in zip(level_scores, level_deltas, level_anchors,
+                                strict=True)]
+    boxes = torch.cat([p[0] for p in parts], dim=1)
+    scores = torch.cat([p[1] for p in parts], dim=1)
+    # the levels are each sorted, not across: the NMS needs the joint
+    # score order (jnp.argsort(-scores) is stable: equal scores keep their
+    # level order)
+    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    return boxes.contiguous(), scores, scores > -0.5
+
+
+def propose_fpn(level_scores, level_deltas, level_anchors,
+                im_info: torch.Tensor, *, pre_nms_top_n: int = 12000,
+                post_nms_top_n: int = 2000, nms_thresh: float = 0.7,
+                min_size: int = 16, use_kernel: bool = True):
+    """Multi-level proposals for a batch: lists over pyramid levels of
+    scores (B, N_l), deltas (B, N_l, 4) and anchors (N_l, 4) →
+    :func:`propose`'s outputs, from one joint NMS over
+    :func:`fpn_candidates` (at 800×1344 and the TEST config: 4 × 1200 +
+    819 = 5 619 candidates, P6 having fewer anchors than its cut)."""
+    boxes, scores, valid = fpn_candidates(
+        level_scores, level_deltas, level_anchors, im_info,
+        pre_nms_top_n=pre_nms_top_n, min_size=min_size)
+    return _nms_gather(boxes, scores, valid, post_nms_top_n, nms_thresh,
+                       use_kernel)
+
+
+def _nms_gather(top_boxes, top_scores, top_valid, post_nms_top_n: int,
+                nms_thresh: float, use_kernel: bool):
+    """Greedy NMS over score-sorted candidates → ``(rois, roi_scores,
+    roi_valid)`` at ``post_nms_top_n`` rows, duplicate-padded."""
     if use_kernel:
         keep_idx, keep_mask = nms_bitmask(top_boxes, top_valid,
                                           post_nms_top_n, nms_thresh)

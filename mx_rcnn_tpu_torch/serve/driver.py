@@ -38,7 +38,7 @@ from mx_rcnn_tpu_torch.serve.engine import ServeEngine, ServeOptions
 from mx_rcnn_tpu_torch.serve.frontend import make_server
 from mx_rcnn_tpu_torch.serve.warmup import warmup
 from mx_rcnn_tpu_torch.tools.common import (add_common_args, config_from_args,
-                                            load_eval_params)
+                                            load_eval_params, refuse_fpn)
 from mx_rcnn_tpu_torch.utils.convert_jax import random_params
 
 
@@ -102,7 +102,8 @@ def parse_args(argv=None):
 
 def build_engine(args, cfg):
     """checkpoint (or ``--synthetic`` weights) → ``Predictor`` → started
-    ``ServeEngine``."""
+    ``ServeEngine``.  An FPN network is refused by name."""
+    refuse_fpn(cfg, "serving")
     device = resolve_device(args.device)
     model = build_model(cfg)
     params = (random_params(model, seed=0) if args.synthetic

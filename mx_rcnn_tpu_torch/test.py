@@ -12,13 +12,22 @@ config (+ ``--cfg`` overrides) → ``PascalVOC``, ``COCODataset`` (or
 thread, default 0) → ``Predictor`` on the checkpoint ``{prefix}-{epoch:04d}
 .npz`` → ``pred_eval`` (host or ``--device-postprocess`` route, serial
 with ``--eval-inflight 0`` or overlapped) → the dataset's scores: VOC's
-per-class AP and mAP, COCO's 12 box stats (AP … ARl).  Flags of the JAX
-driver whose machinery is not ported raise by name.
+per-class AP and mAP, COCO's 12 box stats (AP … ARl).  A Mask R-CNN
+network (``--network resnet101_fpn_mask``) also runs the mask branch and
+scores COCO's segm (``{"bbox": …, "segm": …}``); with
+``--device-postprocess`` its masks are pasted on the card too
+(``TEST.MASK_PASTE="device"``) unless ``--cfg TEST__MASK_PASTE=…`` sets
+another paste.  Flags of the JAX driver whose machinery is not ported
+raise by name.
+
+    python -m mx_rcnn_tpu_torch.test --network resnet101_fpn_mask \
+        --dataset coco --prefix model/mask --epoch 6 --image_set val2017
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from mx_rcnn_tpu_torch.data.loader import TestLoader
 from mx_rcnn_tpu_torch.eval.tester import (INFER_DTYPES, Predictor, pred_eval,
@@ -98,6 +107,12 @@ def test_rcnn(args) -> dict:
                                   f"ported (ROADMAP.md A.11)")
     device = resolve_device(args.device)
     cfg = config_from_args(args, train=False)
+    if args.device_postprocess and cfg.network.HAS_MASK \
+            and cfg.TEST.MASK_PASTE == "native":
+        # the flag that moves decode and NMS onto the card moves the mask
+        # paste there too; an explicit other TEST__MASK_PASTE stays
+        cfg = cfg.replace(TEST=dataclasses.replace(cfg.TEST,
+                                                   MASK_PASTE="device"))
     imdb = get_imdb(args, cfg, test=True)
     roidb = imdb.gt_roidb()
     predictor = Predictor(build_model(cfg), load_eval_params(args), cfg,
@@ -105,6 +120,7 @@ def test_rcnn(args) -> dict:
     loader = TestLoader(roidb, cfg, batch_size=args.batch_images,
                         prefetch=args.prefetch)
     stats = pred_eval(predictor, loader, imdb, thresh=args.thresh,
+                      with_masks=cfg.network.HAS_MASK,
                       det_cache=args.dets_cache or None,
                       inflight=args.eval_inflight,
                       host_workers=args.eval_host_workers,

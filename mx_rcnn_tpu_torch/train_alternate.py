@@ -40,7 +40,7 @@ from mx_rcnn_tpu_torch.logger import logger, setup_logging
 from mx_rcnn_tpu_torch.models.detector import build_model
 from mx_rcnn_tpu_torch.tools.common import (add_common_args, config_from_args,
                                             get_imdb, get_train_roidb,
-                                            init_or_load_params)
+                                            init_or_load_params, refuse_fpn)
 from mx_rcnn_tpu_torch.tools.test_rpn import test_rpn
 from mx_rcnn_tpu_torch.tools.train_rcnn import train_rcnn
 from mx_rcnn_tpu_torch.tools.train_rpn import train_rpn
@@ -85,10 +85,7 @@ def alternate_train(args) -> Params:
         raise ValueError(f"{', '.join(bad)}: the alternate stages write no "
                          f"checkpoints")
     cfg = config_from_args(args, train=True)
-    if cfg.network.HAS_MASK:
-        raise NotImplementedError(
-            "alternate training has no mask-target path; train mask configs "
-            "end2end")
+    refuse_fpn(cfg, "train_alternate")
     imdb = get_imdb(args, cfg)
     roidb = get_train_roidb(imdb, cfg)
     params = init_or_load_params(args, build_model(cfg))

@@ -41,7 +41,7 @@ from mx_rcnn_tpu_torch.models.detector import build_model
 from mx_rcnn_tpu_torch.tools.common import (add_common_args, cap_steps,
                                             config_from_args, get_imdb,
                                             get_train_roidb,
-                                            init_or_load_params)
+                                            init_or_load_params, refuse_fpn)
 from mx_rcnn_tpu_torch.train.resilience import ResilienceOptions
 from mx_rcnn_tpu_torch.train.trainer import fit
 
@@ -57,6 +57,7 @@ def train_net(args):
     setup_logging()
     device = resolve_device(args.device)
     cfg = config_from_args(args, train=True)
+    refuse_fpn(cfg, "train_end2end")
     imdb = get_imdb(args, cfg)
     roidb = get_train_roidb(imdb, cfg)
     batch_size = args.batch_images or cfg.TRAIN.BATCH_IMAGES

@@ -11,8 +11,15 @@ those names (``backbone.stage1.unit1.conv1``), and the mapping is:
   (``conv1``→``bn1``, ``sc_conv``→``sc_bn``, the stem
   ``backbone/conv1``→``backbone/bn1``) ↔ the buffers ``gamma``, ``beta``,
   ``mean``, ``var``.  The stem kernel stays (7, 7, 3, 64).
-* ``nn.Conv2d``: kernel HWIO ↔ OIHW, bias.
-* ``nn.Linear``: flax ``Dense`` kernel (in, out) ↔ weight (out, in), bias.
+* ``nn.Conv2d``: kernel HWIO ↔ OIHW, bias (the FPN neck's ``lateral*``
+  and ``post*``, the heads' convs).
+* ``nn.ConvTranspose2d`` (the mask head's ``mask_deconv``): flax
+  ``ConvTranspose`` kernel (kh, kw, in, out) ↔ weight (in, out, kh, kw)
+  with both spatial axes flipped (flax applies the kernel unflipped, torch
+  as the gradient of a conv), bias.
+* ``nn.Linear``: flax ``Dense`` kernel (in, out) ↔ weight (out, in), bias
+  (``fc6`` of the FPN box head takes its 7×7×256 input flattened in (h, w,
+  c) order on both sides, so it needs no permutation).
 
 Every tensor is float32 on both sides and the maps are transposes, so
 :func:`export_jax_params` ∘ :func:`load_jax_params` is bit-exact.  Reads
@@ -57,6 +64,10 @@ def _leaves(model: nn.Module) -> Iterator[Tuple[str, nn.Module, List[Tuple[str, 
             o, i, kh, kw = mod.weight.shape
             yield path, mod, [(f"{path}/kernel", (kh, kw, i, o)),
                               (f"{path}/bias", (o,))]
+        elif isinstance(mod, nn.ConvTranspose2d):
+            i, o, kh, kw = mod.weight.shape
+            yield path, mod, [(f"{path}/kernel", (kh, kw, i, o)),
+                              (f"{path}/bias", (o,))]
         elif isinstance(mod, nn.Linear):
             o, i = mod.weight.shape
             yield path, mod, [(f"{path}/kernel", (i, o)), (f"{path}/bias", (o,))]
@@ -69,15 +80,19 @@ def _attrs(mod: nn.Module) -> Tuple[str, ...]:
 
 def _tensors(model: nn.Module) -> Iterator[Tuple[str, str, torch.Tensor]]:
     """(jax key, torch attribute, tensor) for every tensor the bridge
-    carries."""
+    carries; a transpose conv's weight is named ``"deconv"``, its map."""
     for _, mod, keys in _leaves(model):
         for (key, _), attr in zip(keys, _attrs(mod), strict=True):
-            yield key, attr, getattr(mod, attr)
+            tag = ("deconv" if isinstance(mod, nn.ConvTranspose2d)
+                   and attr == "weight" else attr)
+            yield key, tag, getattr(mod, attr)
 
 
 def _to_jax(attr: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().to("cpu", torch.float32).numpy()
-    if attr in ("kernel", "weight"):
+    if attr == "deconv":
+        a = a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    elif attr in ("kernel", "weight"):
         a = a.transpose(OIHW_TO_HWIO) if a.ndim == 4 else a.T
     # np.array copies: on the CPU ``a`` may be a view of the model's own
     # tensor, which later training would change under the export
@@ -86,7 +101,9 @@ def _to_jax(attr: str, t: torch.Tensor) -> np.ndarray:
 
 def _from_jax(attr: str, a: np.ndarray) -> torch.Tensor:
     a = np.asarray(a, np.float32)
-    if attr in ("kernel", "weight"):
+    if attr == "deconv":
+        a = a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    elif attr in ("kernel", "weight"):
         a = a.transpose(HWIO_TO_OIHW) if a.ndim == 4 else a.T
     # np.array copies: the source may be a read-only view
     return torch.from_numpy(np.array(a, order="C"))

@@ -13,7 +13,7 @@ too) and the results records equal, arrays of the same dtype bit for bit;
 the cache file is the JAX package's, and each package reads the other's.
 Also: ``get_imdb`` for ``--dataset coco``, the COCO preset against the
 JAX one field by field, ``MAX_GT`` truncation in the loader against the
-JAX loader, and the segm entry points raising.
+JAX loader, and the segm entry points against the JAX ones.
 """
 
 import argparse
@@ -311,12 +311,29 @@ def test_max_gt_truncation_matches_jax(hand_set, tmp_path):
 
 
 def test_segm_entry_points_raise(hand_set, tmp_path):
-    port, _ = both(hand_set, "val2017", tmp_path)
-    dets = seeded_detections(np.random.RandomState(1), port.num_classes,
-                             port.num_images)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        port.segmentations_to_coco(dets, dets)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        port.evaluate_sds(dets, dets)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        port.evaluate_detections(dets, iou_type="segm")
+    """The segm entry points (ported with the mask path) against the JAX
+    ones on the hand set: ``segmentations_to_coco`` gives the same records
+    (a row without its mask left out); ``evaluate_sds`` and
+    ``evaluate_detections(iou_type="segm")`` raise the JAX package's
+    ``KeyError`` there, the set's gt (and box records) having no
+    ``segmentation``."""
+    from mx_rcnn_tpu_torch.eval.mask_rle import encode
+
+    port, jax_ = both(hand_set, "val2017", tmp_path)
+    rng = np.random.RandomState(1)
+    dets = seeded_detections(rng, port.num_classes, port.num_images)
+    masks = [[None] * port.num_images for _ in dets]
+    for k in range(1, port.num_classes):
+        for i, d in enumerate(dets[k]):
+            if d is None or not len(d) or i == 3:
+                continue
+            h, w = SIZES[i]
+            masks[k][i] = [encode((rng.rand(h, w) < 0.01).astype(np.uint8))
+                           for _ in range(len(d) - (k == 2))]
+    got = port.segmentations_to_coco(dets, masks)
+    assert got and got == jax_.segmentations_to_coco(dets, masks)
+    for ds in (jax_, port):
+        with pytest.raises(KeyError, match="segmentation"):
+            ds.evaluate_sds(dets, masks)
+        with pytest.raises(KeyError, match="segmentation"):
+            ds.evaluate_detections(dets, iou_type="segm")

@@ -9,7 +9,8 @@ four area ranges, exact score ties, more than 100 detections per (image,
 category), gt without detections and the reverse, and a category with no
 gt; on sets drawn by ``hypothesis``; and on the five protocol cases of
 ``tests/test_coco_eval.py``, whose own assertions are kept.  The segm
-route is not ported and must raise.
+route's parity is in ``tests/test_torch_mask_eval.py``; here it raises on
+gt without masks as the JAX one does.
 """
 
 import json
@@ -292,8 +293,15 @@ def test_real_match_kept_over_an_ignored_gt(tmp_path):
 
 
 def test_segm_mode_raises(tmp_path):
+    """``iou_type="segm"`` (ported with the mask path) on a set whose gt
+    have no ``segmentation``: with box records or none, ``evaluate`` raises
+    the JAX package's ``KeyError``; another ``iou_type`` is a
+    ``ValueError``."""
     path = write_ann(tmp_path / "ann.json", CROWD_ANN)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        COCOEval(path, [], iou_type="segm")
+    for results in ([], [_det(1, 1, [12, 12, 40, 40], 0.9)]):
+        for cls in (COCOEval, JCOCOEval):
+            ev = cls(path, results, iou_type="segm")
+            with pytest.raises(KeyError, match="segmentation"):
+                ev.evaluate()
     with pytest.raises(ValueError):
         COCOEval(path, [], iou_type="keypoints")
