@@ -190,10 +190,30 @@ Phases, each printing its own lines:
    of the numpy paste's; ``propose_fpn``'s joint NMS in float32 against
    ``nms_padded``, the NMS pair timed at the joint shape (B · 5 619 →
    300); the serve driver refusing the network by name.
-13. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
+13. FPN and Mask R-CNN training at full width (``fpn_train_slice``):
+   phase 12's set with one more non-crowd annotation as an RLE dict;
+   ``python -m mx_rcnn_tpu_torch.train_end2end --network
+   resnet101_fpn_mask --dataset coco`` (ResNet-101 C2–C5, 256-channel
+   neck, 81 classes, 800×1344, TRAIN 12000 → 2000, 256 anchors and 128
+   RoIs an image, ``MAX_GT`` 100, 28×28 mask targets, bf16, the fused
+   assign, flipped records) on seeded random weights: every loss and
+   ``MaskLoss`` finite, each kernel once a step, the mask head, neck and
+   RPN moved, the frozen leaves bitwise, step walls, loader wait, peak
+   memory, the ``uint8`` ``gt_masks`` bytes a batch; ``test`` on the
+   checkpoint (box and segm stats).  On the first step's own inputs: the
+   assign pair over the 268 569 concatenated anchors bitwise against the
+   dense path (and at G = 100 valid gt), the joint proposal's B · 10 419
+   candidates through the NMS pair, the kept rows equal to
+   ``nms_padded``'s, each pair timed with its bound; the mask targets on
+   the card against the CPU outside the 0.5 band.  ``train_alternate
+   --network resnet101_fpn --dataset coco``: each stage's wall and
+   launches, the combined model with stage 4's neck, its box stats;
+   ``train_alternate --network resnet101_fpn_mask`` refused with the JAX
+   package's message.
+14. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
    shape it was timed at: the training path's, then COCO's, then FPN's
-   joint proposal), then the last line
-   ``{"ok": true, "device": {...}}``.
+   joint proposal, then FPN training's anchors and joint proposal), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
 fails.  Imports nothing of JAX or of the JAX package.
@@ -257,7 +277,9 @@ TRAIN_IMAGES = 4
 FIT_STEPS = 20
 TIMED_STEPS = 3
 # FPN's concatenated anchors at the 608×1024 bucket (P2..P6 at strides 4 to
-# 64, 3 anchors per cell): the shape assign_pallas.py was written for
+# 64, 3 anchors per cell): the shape assign_pallas.py was written for, on
+# no path of the port (the FPN presets train at 800×1344:
+# FPN_TRAIN_ANCHORS); timed at G = 100 beside the main path's anchors
 FPN_ANCHORS = 155_520
 FPN_STRIDES = (4, 8, 16, 32, 64)
 # IoU threshold of the sweep cases' chains (neighbours overlap at 0.29)
@@ -355,6 +377,22 @@ COCO_FLAGS = ["--network", "resnet101", "--dataset", "coco",
 FPN_FLAGS = ["--network", "resnet101_fpn_mask", "--dataset", "coco",
              "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}"]
 MASK_FLIP_BOUND = 3
+# the FPN / Mask R-CNN training slice: the drivers' flags but the network
+# (the COCO preset, the fused assign, pixels scaled as the other slices),
+# the end-to-end run's steps, the steps of each alternate training stage,
+# the concatenated P2–P6 anchors of the 800×1344 bucket (3 a cell at
+# strides 4 … 64: 201 600 + 50 400 + 12 600 + 3 150 + 819), the joint
+# proposal's candidates at the TRAIN config (12000 // 5 = 2 400 a level,
+# P6 has 819), and the band around 0.5 inside which a mask target pixel may
+# threshold either way between two libraries' float32 sums
+FPN_TRAIN_FLAGS = ["--dataset", "coco",
+                   "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}",
+                   "--cfg", "tpu__ASSIGN_FUSED=True"]
+FPN_TRAIN_STEPS = 4
+FPN_ALT_STEPS = 2
+FPN_TRAIN_ANCHORS = 268_569
+FPN_TRAIN_CANDIDATES = 4 * 2_400 + 819
+MASK_TARGET_BAND = 1e-5
 
 
 def log(phase: str, **kw) -> None:
@@ -3115,6 +3153,38 @@ def write_coco(root: str, seed: int) -> str:
     return path
 
 
+class WaitTimed:
+    """A driver's loader with the consumer's wait in each ``next`` timed
+    into ``waits`` (at 0 workers and ``--prefetch 0``: record loading,
+    decode, staging and the ``put`` hook, all on fit's thread)."""
+
+    def __init__(self, inner, waits: list):
+        object.__setattr__(self, "_inner", inner)
+        object.__setattr__(self, "_waits", waits)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._inner, name, value)
+
+    def __iter__(self):
+        it = iter(self._inner)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self._waits.append(time.perf_counter() - t0)
+                yield batch
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+
 def coco_slice(P, pretrained: str, work: str, seed: int, device=None,
                flags=COCO_FLAGS) -> list:
     """COCO end to end at full width (ResNet-101, 81 classes, the 800×1333
@@ -3204,41 +3274,11 @@ def coco_slice(P, pretrained: str, work: str, seed: int, device=None,
         walls.append(now - last[0])
         last[0] = now
 
-    class WaitTimed:
-        """The driver's loader with the consumer's wait in each ``next``
-        timed (at 0 workers and ``--prefetch 0``: record loading, decode,
-        staging and the ``put`` hook, all on fit's thread)."""
-
-        def __init__(self, inner):
-            object.__setattr__(self, "_inner", inner)
-
-        def __getattr__(self, name):
-            return getattr(self._inner, name)
-
-        def __setattr__(self, name, value):
-            setattr(self._inner, name, value)
-
-        def __iter__(self):
-            it = iter(self._inner)
-            try:
-                while True:
-                    t0 = time.perf_counter()
-                    try:
-                        batch = next(it)
-                    except StopIteration:
-                        return
-                    waits.append(time.perf_counter() - t0)
-                    yield batch
-            finally:
-                close = getattr(it, "close", None)
-                if close is not None:
-                    close()
-
     fit, get_image = P.train_end2end.fit, P.loader_mod.get_image
 
     def fit_timed(cfg, model, params, loader, **k):
         last[0] = time.perf_counter()
-        return fit(cfg, model, params, WaitTimed(loader),
+        return fit(cfg, model, params, WaitTimed(loader, waits),
                    batch_end_callback=on_step, **k)
 
     def get_image_timed(*a, **k):
@@ -3757,6 +3797,457 @@ def fpn_slice(P, work: str, seed: int, device=None, flags=FPN_FLAGS) -> list:
     return rows
 
 
+def add_rle_annotation(P, path: str) -> dict:
+    """One more non-crowd annotation in the image with the fewest, its
+    segmentation a compressed RLE dict (a disc), so that training runs the
+    rasteriser's RLE branch (crop and nearest resize).  Returns it."""
+    ann_file = os.path.join(path, "annotations", f"instances_{COCO_SPLIT}.json")
+    with open(ann_file) as f:
+        ann = json.load(f)
+    count = {im["id"]: 0 for im in ann["images"]}
+    for a in ann["annotations"]:
+        count[a["image_id"]] += 1
+    im = next(i for i in ann["images"] if count[i["id"]] == min(count.values()))
+    h, w = im["height"], im["width"]
+    yy, xx = np.mgrid[:h, :w]
+    m = (((yy - 0.5 * h) ** 2 + (xx - 0.4 * w) ** 2)
+         <= (0.2 * min(h, w)) ** 2).astype(np.uint8)
+    ys, xs = np.nonzero(m)
+    rle = P.mask_rle.encode(m)
+    new = {"id": max(a["id"] for a in ann["annotations"]) + 1,
+           "image_id": im["id"], "category_id": COCO_IDS[7],
+           "bbox": [float(xs.min()), float(ys.min()),
+                    float(xs.max() - xs.min() + 1),
+                    float(ys.max() - ys.min() + 1)],
+           "area": float(m.sum()), "iscrowd": 0,
+           "segmentation": {"size": rle["size"], "counts":
+                            P.mask_rle.counts_to_string(rle["counts"])}}
+    ann["annotations"].append(new)
+    with open(ann_file, "w") as f:
+        json.dump(ann, f)
+    return new
+
+
+def _detached(x):
+    """Tensors (alone or in lists) detached and copied; the rest as is."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_detached(v) for v in x)
+    return x
+
+
+def fpn_train_slice(P, work: str, seed: int, device=None,
+                    flags=FPN_TRAIN_FLAGS) -> list:
+    """FPN and Mask R-CNN training at full width (ResNet-101 with C2–C5, a
+    256-channel neck, 81 classes, the 800×1333 bucket padded to 800×1344,
+    TRAIN 12000 → 2000, ``RPN_BATCH_SIZE`` 256, ``BATCH_ROIS`` 128,
+    ``MAX_GT`` 100, ``MASK_SIZE`` 28, ``ROI_SAMPLING_RATIO`` 2, bf16 compute
+    on float32 parameters, ``ASSIGN_FUSED``, ``FLIP``, seeded random
+    weights) on :func:`write_coco_masks`'s set with one more non-crowd
+    annotation as an RLE dict (:func:`add_rle_annotation`), every kernel
+    count set to 0 just before each run and read just after:
+
+    * ``python -m mx_rcnn_tpu_torch.train_end2end --network
+      resnet101_fpn_mask --dataset coco``'s ``train_net``, ``BATCH`` images a
+      step, ``FPN_TRAIN_STEPS`` steps: every loss and ``MaskLoss`` finite,
+      each kernel once a step, the ``mask_head``, ``neck`` and ``rpn``
+      leaves moved and the ``FIXED_PARAMS`` leaves bitwise unchanged, the
+      step walls, fit's wait on the loader, the peak of
+      ``max_memory_allocated`` and the bytes of a batch's ``gt_masks``;
+      the checkpoint evaluated by ``python -m mx_rcnn_tpu_torch.test``
+      (serial, host route): box and segm stats;
+    * on the first step's own inputs: the assign pair over the 268 569
+      concatenated P2–P6 anchors bitwise against the dense path, and at G
+      = 100 valid gt; ``propose_fpn``'s joint candidates (B · 10 419) through
+      the NMS pair, the kept rows equal to ``nms_padded``'s; each pair
+      timed, with its bound; the step's ``mask_targets_for_rois`` on the
+      card against the same call on CPU copies, equal but at pixels whose
+      float64 sample lies within ``MASK_TARGET_BAND`` of 0.5;
+    * ``python -m mx_rcnn_tpu_torch.train_alternate --network resnet101_fpn
+      --dataset coco``, ``FPN_ALT_STEPS`` steps a stage: each stage's wall
+      and kernel launches (the assign pair once a step in stages 1 and 4,
+      the NMS pair once a record in stages 2 and 5, nothing in 3 and 6),
+      the combined model's neck and backbone stage 4's and its head stage
+      6's, evaluated by ``test`` (box stats); ``train_alternate --network
+      resnet101_fpn_mask`` raising the JAX package's message before any
+      stage.
+
+    Returns the kernels' rows at the training shapes."""
+    tstart = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    data = write_coco_masks(P, os.path.join(work, "fpn_train"), seed)
+    rle_ann = add_rle_annotation(P, data)
+    paths = ["--image_set", COCO_SPLIT, "--dataset_path", data,
+             "--root_path", os.path.join(work, "fpn_train_cache")]
+    on = [] if device is None else ["--device", str(device)]
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep,
+                "assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+
+    def counted(fn):
+        sync()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, {k: f.launches for k, f in counters.items()}, \
+            time.perf_counter() - t0
+
+    # ---- end-to-end training through the driver ----
+    prefix = os.path.join(work, "fpn_train_model", "mask")
+    targs = P.train_end2end.parse_args(
+        ["--network", "resnet101_fpn_mask"] + flags + paths + on + [
+            "--batch_images", str(BATCH), "--num-steps", str(FPN_TRAIN_STEPS),
+            "--end_epoch", "1", "--frequent", "1", "--prefix", prefix,
+            "--seed", str(seed)])
+    tcfg = P.config_from_args(targs, train=True)
+    tr, net, tpu = tcfg.TRAIN, tcfg.network, tcfg.tpu
+    stride = max(net.IMAGE_STRIDE, net.RPN_FEAT_STRIDE)
+    bucket = P.image_mod.bucket_shape(tpu.SCALES[0], stride)
+    got = (net.NETWORK, tcfg.NUM_CLASSES, bucket, net.HAS_FPN, net.HAS_MASK,
+           net.FPN_OUT_CHANNELS, tr.RPN_PRE_NMS_TOP_N, tr.RPN_POST_NMS_TOP_N,
+           tr.RPN_BATCH_SIZE, tr.BATCH_ROIS, tpu.MAX_GT, tr.MASK_SIZE,
+           tpu.ROI_SAMPLING_RATIO, tpu.COMPUTE_DTYPE, tpu.ASSIGN_FUSED,
+           tr.FLIP)
+    if got != ("resnet101", 81, (800, 1344), True, True, 256, 12000, 2000,
+               256, 128, 100, 28, 2, "bfloat16", True, True):
+        fail(f"fpn train: config {got}")
+    roidb = P.get_imdb(targs, tcfg).gt_roidb()
+    rle_rec = [(r, j) for r in roidb for j, s_ in enumerate(
+        r["segmentation"][:tpu.MAX_GT]) if isinstance(s_, dict)]
+    if len(rle_rec) != 1:
+        fail(f"fpn train: {len(rle_rec)} non-crowd RLE segmentations")
+    rec, j = rle_rec[0]
+    crop = P.mask_mod.rasterize_gt_masks(rec["segmentation"], rec["boxes"],
+                                         rec["width"], False, tpu.MAX_GT)[j]
+    if not 0 < int(crop.sum()) < crop.size:
+        fail(f"fpn train: the RLE annotation rasterises to {int(crop.sum())} "
+             f"of {crop.size} pixels")
+
+    captured, seen, walls, waits, masks_seen, states = {}, [], [], [], [], []
+    last = [0.0]
+
+    def capture(name, fn):
+        def wrapped(*a, **k):
+            if name not in captured:
+                captured[name] = (_detached(a), k)
+            return fn(*a, **k)
+        return wrapped
+
+    def on_step(epoch, step, metrics):
+        now = time.perf_counter()  # frequent=1: fit has synchronised
+        seen.append(metrics)
+        walls.append(now - last[0])
+        last[0] = now
+
+    fit, batch_put = P.train_end2end.fit, P.trainer.batch_put
+
+    def fit_timed(cfg, model, params, loader, **k):
+        states.append({k_: np.array(v) for k_, v in params.items()})
+        last[0] = time.perf_counter()
+        st = fit(cfg, model, params, WaitTimed(loader, waits),
+                 batch_end_callback=on_step, **k)
+        states.append(st)
+        return st
+
+    def batch_put_seen(batch, cfg, device_):
+        out = batch_put(batch, cfg, device_)
+        masks_seen.append((str(out["gt_masks"].dtype), tuple(
+            out["gt_masks"].shape), out["gt_masks"].numel()
+            * out["gt_masks"].element_size(), out["gt_masks"].device.type))
+        return out
+
+    patched = ((P.train_end2end, "fit", fit_timed),
+               (P.trainer, "batch_put", batch_put_seen),
+               (P.fpn_mod, "assign_targets",
+                capture("assign", P.fpn_mod.assign_targets)),
+               (P.fpn_mod, "propose_fpn",
+                capture("propose", P.fpn_mod.propose_fpn)),
+               (P.fpn_mod, "mask_targets_for_rois",
+                capture("mask_targets", P.fpn_mod.mask_targets_for_rois)))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patched]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for m, n, f in patched:
+        setattr(m, n, f)
+    try:
+        _, train_launches, train_s = counted(
+            lambda: P.train_end2end.train_net(targs))
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    peak_bytes = torch.cuda.max_memory_allocated() if on_card else 0
+    before, st = states
+    if len(seen) != FPN_TRAIN_STEPS or st.step != FPN_TRAIN_STEPS:
+        fail(f"fpn train: {len(seen)} steps of {FPN_TRAIN_STEPS}")
+    for name, count in train_launches.items():
+        if count != FPN_TRAIN_STEPS:
+            fail(f"fpn train: {name} launched {count} times in "
+                 f"{FPN_TRAIN_STEPS} steps")
+    keys = ("RPNLogLoss", "RPNL1Loss", "RCNNLogLoss", "RCNNL1Loss", "MaskLoss")
+    if not all(k in m and np.isfinite(m[k]) for m in seen for k in keys):
+        fail(f"fpn train: metrics {seen}")
+    if not all(m["MaskLoss"] > 0 for m in seen):
+        fail(f"fpn train: a zero mask loss {[m['MaskLoss'] for m in seen]}")
+    if {d[0] for d in masks_seen} != {"torch.uint8"} or \
+            {d[1] for d in masks_seen} != {(BATCH, tpu.MAX_GT, 112, 112)} or \
+            {d[3] for d in masks_seen} != {dev.type}:
+        fail(f"fpn train: gt_masks on the device {masks_seen}")
+    after = P.export_jax_params(st.model)
+    n_frozen, n_moved = _moved_and_frozen(before, after, st.mask, "fpn train")
+    # every trainable leaf that was not 0 moved (decay alone moves it);
+    # a bias that moved from 0 took a gradient: one at least in each group
+    for group in ("mask_head/", "neck/", "rpn/"):
+        if not any(k.startswith(group) and k.endswith("/bias")
+                   and not np.array_equal(after[k], before[k])
+                   for k in after):
+            fail(f"fpn train: no {group} bias took a gradient")
+    del after, before
+    log("fpn_train", network=net.NETWORK, fpn=True, mask=True,
+        classes=tcfg.NUM_CLASSES, bucket=list(bucket), dtype=tpu.COMPUTE_DTYPE,
+        images=len(COCO_SIZES), records=len(roidb) * 2, batch=BATCH,
+        steps=len(seen), train_wall_s=train_s, launches=train_launches,
+        launches_per_step={k: v / FPN_TRAIN_STEPS
+                           for k, v in train_launches.items()},
+        frozen_leaves=n_frozen, moved_leaves=n_moved,
+        max_memory_allocated_bytes=peak_bytes,
+        gt_masks={"dtype": masks_seen[0][0], "shape": list(masks_seen[0][1]),
+                  "bytes_per_batch": masks_seen[0][2]},
+        rle_annotation=rle_ann["id"], rle_crop_pixels=int(crop.sum()),
+        step_wall_s=walls,
+        step_wall_median_s=statistics.median(walls[1:]),
+        loader_wait_s=waits, loader_wait_share=sum(waits) / sum(walls),
+        metrics=seen)
+    del st
+    states.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- the checkpoint through the test driver ----
+    eargs = P.test_driver.parse_args(
+        ["--network", "resnet101_fpn_mask"] + flags + paths + on + [
+            "--prefix", prefix, "--epoch", "1", "--batch_images", str(BATCH),
+            "--eval-inflight", "0"])
+    out, eval_launches, eval_s = counted(lambda: P.test_driver.test_rcnn(eargs))
+    for kind in ("bbox", "segm"):
+        s_ = out.get(kind, {})
+        if tuple(s_) != COCO_STATS or not all(
+                np.isfinite(v) and -1.0 <= v <= 1.0 for v in s_.values()):
+            fail(f"fpn train eval: {kind} stats {s_}")
+    log("fpn_train_eval", seconds=eval_s, launches=eval_launches,
+        stats={k: out[k] for k in ("bbox", "segm")})
+
+    # ---- the kernels on the first step's own inputs ----
+    _, anchors, gt_boxes, gt_valid, im_info = captured["assign"][0][:5]
+    rows = fpn_train_kernels(P, tcfg, dev, anchors, gt_boxes, gt_valid,
+                             im_info, captured["propose"][0],
+                             captured["mask_targets"], train_launches)
+    del captured
+
+    # ---- alternate training of the box network ----
+    fpn_alternate(P, flags, paths, on, work, seed, sync)
+    log("fpn_train_total", seconds=time.perf_counter() - tstart)
+    return rows
+
+
+def fpn_train_kernels(P, tcfg, dev, anchors, gt_boxes, gt_valid, im_info,
+                      propose_args, mask_args, launches) -> list:
+    """The assign and NMS pairs on one training step's own inputs, each
+    against its plain version, timed, with its bound; the assign pair also
+    at G = 100 valid gt; the step's mask targets on the card against the
+    CPU.  Returns the pairs' rows at the step's shapes."""
+    tr = tcfg.TRAIN
+    n = int(anchors.shape[0])
+    if n != FPN_TRAIN_ANCHORS:
+        fail(f"fpn train: {n} concatenated anchors, expected "
+             f"{FPN_TRAIN_ANCHORS}")
+    ab = tr.RPN_ALLOWED_BORDER
+    im_h, im_w = im_info[:, 0:1], im_info[:, 1:2]
+    inside = ((anchors[None, :, 0] >= -ab) & (anchors[None, :, 1] >= -ab)
+              & (anchors[None, :, 2] < im_w + ab)
+              & (anchors[None, :, 3] < im_h + ab))
+    rows = time_assign(P.assign_cuda, anchors, gt_boxes, gt_valid, inside)
+    g = int(gt_boxes.shape[1])
+    for k in rows:
+        k["shape"] = (f"fpn train: N={n}, G={g}, the batch's gt "
+                      f"({[int(x) for x in gt_valid.sum(1)]} valid)")
+    an = anchors.cpu().numpy()
+    hw = [int(x) for x in im_info[0, :2].tolist()]
+    per = [assign_case(np.random.RandomState(70 + b), an, hw, 100, 100,
+                       (40.0, 360.0)) for b in range(int(gt_boxes.shape[0]))]
+    g100 = time_assign(P.assign_cuda, anchors, *(
+        torch.from_numpy(np.stack([p[i] for p in per])).to(dev)
+        for i in range(3)))
+    log("times_fpn_assign", shape={"B": int(gt_boxes.shape[0]), "anchors": n,
+                                   "gt": g}, kernels=rows,
+        g100={"gt": 100, "kernels": g100})
+
+    # the joint proposal of the step: its candidates, the kept rows
+    scores, deltas, level_anchors, info = propose_args[:4]
+    boxes, sc, valid = P.fpn_candidates(
+        scores, deltas, level_anchors, info,
+        pre_nms_top_n=tr.RPN_PRE_NMS_TOP_N, min_size=tr.RPN_MIN_SIZE)
+    b, m = int(boxes.shape[0]), int(boxes.shape[1])
+    if boxes.dtype != torch.float32 or m != FPN_TRAIN_CANDIDATES:
+        fail(f"fpn train: joint candidates {boxes.dtype} {m}, expected "
+             f"float32 {FPN_TRAIN_CANDIDATES}")
+    ki, km = P.nms_cuda.nms_bitmask(boxes, valid, tr.RPN_POST_NMS_TOP_N,
+                                    tr.RPN_NMS_THRESH)
+    for i in range(b):
+        ri, rm = P.nms_padded(boxes[i], sc[i], tr.RPN_POST_NMS_TOP_N,
+                              tr.RPN_NMS_THRESH, valid=valid[i])
+        if not torch.equal(ki[i][km[i]], ri[rm]):
+            fail(f"fpn train propose: kernel and plain NMS keep different "
+                 f"rows in image {i}")
+    nms_rows = time_kernels(P.nms_cuda, boxes, valid, tr.RPN_POST_NMS_TOP_N,
+                            tr.RPN_NMS_THRESH)
+    for k in nms_rows:
+        k["shape"] = (f"fpn train proposal: B={b}, n={m} -> "
+                      f"{tr.RPN_POST_NMS_TOP_N}")
+    log("times_fpn_train_proposal", shape={"B": b, "n": m, "max_out":
+                                           tr.RPN_POST_NMS_TOP_N},
+        levels=[int(s_.shape[1]) for s_ in scores],
+        kept=[int(x) for x in km.sum(1)], candidates=int(valid.sum()),
+        identical=True, kernels=nms_rows)
+    rows += nms_rows
+    for k in rows:
+        if k["max_abs_err"] != 0.0:
+            fail(f"{k['name']} disagrees with its plain version on the FPN "
+                 f"training step's inputs (max abs err {k['max_abs_err']})")
+        k.update(route="cuda", source=SOURCES[k["name"]],
+                 replaces=REPLACES[k["name"]], launches=launches[k["name"]])
+
+    # the step's mask targets: the card against CPU copies
+    (gm, gtb, rois, gi), kw = mask_args
+    card = P.mask_target.mask_targets_for_rois(gm, gtb, rois, gi, **kw)
+    cpu_args = [x.cpu() for x in (gm, gtb, rois, gi)]
+    host = P.mask_target.mask_targets_for_rois(*cpu_args, **kw)
+    out = kw["out_size"]
+    my, mx = P.mask_target._frame_coords(cpu_args[1], cpu_args[2],
+                                         cpu_args[3], gm.shape[-1], out)
+    r = rois.shape[0] * rois.shape[1]
+    sel = cpu_args[3].reshape(-1) + torch.arange(
+        rois.shape[0]).repeat_interleave(rois.shape[1]) * gm.shape[1]
+    v64 = P.mask_target._sample_gather(
+        cpu_args[0].reshape((-1,) + tuple(gm.shape[2:]))[sel].double(),
+        my.reshape(r, out).double(), mx.reshape(r, out).double(), out,
+        gm.shape[-1]).reshape(host.shape)
+    off = card.cpu() != host
+    outside = off & ((v64 - 0.5).abs() > MASK_TARGET_BAND)
+    if outside.any():
+        fail(f"fpn train: {int(outside.sum())} mask target pixels differ "
+             f"between the card and the CPU outside the 0.5 band")
+    log("fpn_mask_targets", rois=r, out_size=out, gt_side=int(gm.shape[-1]),
+        gt_dtype=str(gm.dtype), fg_pixels=int(host.sum()),
+        differ_in_band=int(off.sum()), band=MASK_TARGET_BAND)
+    return rows
+
+
+def fpn_alternate(P, flags: list, paths: list, on: list, work: str,
+                  seed: int, sync) -> None:
+    """``train_alternate --network resnet101_fpn`` (see
+    :func:`fpn_train_slice`), its stage functions wrapped to count, time
+    and keep their weights; the combined model by group and through
+    ``test``; the mask network refused."""
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep,
+                "assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+    stages = []
+
+    def wrap(stage, graph):
+        def wrapped(*a, **kw):
+            sync()
+            for f in counters.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            out = stage(*a, **kw)
+            sync()
+            row = {"graph": graph, "wall_s": time.perf_counter() - t0,
+                   "launches": {k: f.launches for k, f in counters.items()}}
+            if graph == "proposals":
+                row["records"] = len(out)
+            else:
+                row.update(steps=out.step, params=P.export_jax_params(
+                    out.model))
+            stages.append(row)
+            return out
+        return wrapped
+
+    ta = P.train_alternate
+    saved = [(n, getattr(ta, n)) for n in ("train_rpn", "test_rpn",
+                                           "train_rcnn")]
+    for n, f in saved:
+        setattr(ta, n, wrap(f, {"train_rpn": "rpn", "test_rpn": "proposals",
+                                "train_rcnn": "rcnn"}[n]))
+    prefix = os.path.join(work, "fpn_alt_model", "alt")
+    common = flags + paths + on
+    t0 = time.perf_counter()
+    try:
+        final = ta.alternate_train(ta.parse_args(
+            ["--network", "resnet101_fpn"] + common + [
+                "--num-steps", str(FPN_ALT_STEPS), "--end_epoch", "1",
+                "--batch_images", str(BATCH), "--prefix", prefix,
+                "--seed", str(seed)]))
+    finally:
+        for n, f in saved:
+            setattr(ta, n, f)
+    alt_s = time.perf_counter() - t0
+    if [s_["graph"] for s_ in stages] != ["rpn", "proposals", "rcnn", "rpn",
+                                          "proposals", "rcnn"]:
+        fail(f"fpn alternate: stages {[s_['graph'] for s_ in stages]}")
+    for i, s_ in enumerate(stages):
+        la = s_["launches"]
+        want_assign = FPN_ALT_STEPS if s_["graph"] == "rpn" else 0
+        want_nms = s_.get("records", 0)
+        if (la["assign_gtmax"], la["assign_rows"], la["nms_mask"],
+                la["nms_sweep"]) != (want_assign,) * 2 + (want_nms,) * 2:
+            fail(f"fpn alternate stage {i + 1} ({s_['graph']}): launches {la}")
+        if s_["graph"] != "proposals" and s_["steps"] != FPN_ALT_STEPS:
+            fail(f"fpn alternate stage {i + 1}: {s_['steps']} steps")
+    s4, s6 = stages[3]["params"], stages[5]["params"]
+    neck = [k for k in final if k.startswith("neck/")]
+    if not neck or any(k.startswith("mask_head/") for k in final):
+        fail(f"fpn alternate: combined groups "
+             f"{sorted({k.split('/')[0] for k in final})}")
+    for k, v in final.items():
+        src = s6 if k.split("/")[0] in ("head_body", "rcnn_out") else s4
+        if not np.array_equal(v, src[k]):
+            fail(f"fpn alternate: combined {k} is not its stage's")
+    for k in neck:  # stage 6 froze the neck (FIXED_PARAMS_SHARED)
+        if not np.array_equal(s6[k], s4[k]):
+            fail(f"fpn alternate: stage 6 moved the frozen {k}")
+    stages_log = [{k: v for k, v in s_.items() if k != "params"}
+                  for s_ in stages]
+    stages.clear()
+    del s4, s6, final
+    eargs = P.test_driver.parse_args(
+        ["--network", "resnet101_fpn"] + common + [
+            "--prefix", prefix, "--epoch", "1", "--batch_images", str(BATCH),
+            "--eval-inflight", "0"])
+    out = P.test_driver.test_rcnn(eargs)
+    bbox = {k: out.get(k) for k in COCO_STATS}
+    if not all(v is not None and np.isfinite(v) for v in bbox.values()):
+        fail(f"fpn alternate eval: bbox stats {bbox}")
+    try:
+        ta.alternate_train(ta.parse_args(
+            ["--network", "resnet101_fpn_mask"] + common + [
+                "--prefix", prefix + "-mask"]))
+        fail("fpn alternate: a mask network trained alternately")
+    except NotImplementedError as e:
+        if str(e) != P.fpn_mod.NO_MASK_ALTERNATE:
+            fail(f"fpn alternate: the mask network refused with {e}")
+    log("fpn_alternate", network="resnet101", fpn=True, wall_s=alt_s,
+        stages=stages_log, neck_leaves=len(neck), bbox=bbox,
+        mask_refused=P.fpn_mod.NO_MASK_ALTERNATE)
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -3779,8 +4270,11 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.eval import tester
     from mx_rcnn_tpu_torch.eval.coco_eval import COCOEval
     from mx_rcnn_tpu_torch.kernels import _build, assign_cuda, nms_cuda
+    from mx_rcnn_tpu_torch.data import mask as mask_mod
+    from mx_rcnn_tpu_torch.models import fpn as fpn_mod
     from mx_rcnn_tpu_torch.models.detector import build_model
     from mx_rcnn_tpu_torch.models.losses import fg_prob
+    from mx_rcnn_tpu_torch.ops import mask_target
     from mx_rcnn_tpu_torch.ops import postprocess as post
     from mx_rcnn_tpu_torch.ops.anchors import all_anchors, generate_anchors
     from mx_rcnn_tpu_torch.ops.assign_anchor import uniform_draws
@@ -4030,11 +4524,16 @@ def main() -> int:
         # ---- 12. FPN and Mask R-CNN inference at full width ---------------
         torch.cuda.empty_cache()
         fpn = fpn_slice(P, work, args.seed)
+
+        # ---- 13. FPN and Mask R-CNN training at full width ----------------
+        torch.cuda.empty_cache()
+        fpn_train = fpn_train_slice(P, work, args.seed)
     log("total", seconds=time.perf_counter() - t_start)
 
+    # ---- 14. the kernels line and the result --------------------------------
     # the main path's rows (the training shape), then the COCO shapes', then
-    # FPN's joint proposal
-    kernels += coco + fpn
+    # FPN's joint proposal, then FPN training's anchors and joint proposal
+    kernels += coco + fpn + fpn_train
     order = ("name", "shape", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -38,8 +38,12 @@ The host pipeline, as in the JAX package:
   port's default, reads on the consumer's thread (the JAX package clamps
   the depth to 1 and defaults to 2).
 
-Not ported: the host cv2 path, replay mixing, masks and multi-host
-partitions.
+A Mask R-CNN config (``HAS_MASK``) adds ``gt_masks`` to ``AnchorLoader``'s
+batches: (B, ``MAX_GT``, 112, 112) ``uint8`` gt-box-frame crops rasterised
+on the host (``data/mask.py``), in the worker when there are workers.
+``ROIIter`` and ``TestLoader`` never carry masks, as in the JAX package.
+
+Not ported: the host cv2 path, replay mixing and multi-host partitions.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import numpy as np
 from mx_rcnn_tpu_torch import telemetry
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.data.image import get_image, stage_raw_to_bucket
+from mx_rcnn_tpu_torch.data.mask import rasterize_gt_masks
 from mx_rcnn_tpu_torch.logger import logger
 
 # A training loader substitutes a record that fails to load, but this many
@@ -64,8 +69,11 @@ MAX_CONSECUTIVE_BAD_RECORDS = 8
 Plan = List[Tuple[np.ndarray, Tuple[int, int]]]
 
 
-def _load_record(rec: dict, cfg: Config, scale: Tuple[int, int]) -> dict:
-    """roidb record → one staged sample (host numpy)."""
+def _load_record(rec: dict, cfg: Config, scale: Tuple[int, int],
+                 with_masks: bool = False) -> dict:
+    """roidb record → one staged sample (host numpy).  ``with_masks``
+    (training loaders): a ``HAS_MASK`` config's sample also carries its
+    rasterised ``gt_masks``."""
     im = rec["image_array"] if "image_array" in rec else get_image(
         rec["image"])
     stride = max(cfg.network.IMAGE_STRIDE, cfg.network.RPN_FEAT_STRIDE)
@@ -81,13 +89,18 @@ def _load_record(rec: dict, cfg: Config, scale: Tuple[int, int]) -> dict:
         boxes[:n] = rec["boxes"][:n] * s  # gt scaled into the resized frame
         classes[:n] = rec["gt_classes"][:n]
         valid[:n] = True
-    return dict(images=staged, im_info=im_info, gt_boxes=boxes,
-                gt_classes=classes, gt_valid=valid, raw_hw=raw_hw,
-                prep_ratio=ratio, flip=np.bool_(rec.get("flipped", False)))
+    out = dict(images=staged, im_info=im_info, gt_boxes=boxes,
+               gt_classes=classes, gt_valid=valid, raw_hw=raw_hw,
+               prep_ratio=ratio, flip=np.bool_(rec.get("flipped", False)))
+    if with_masks and cfg.network.HAS_MASK:
+        out["gt_masks"] = rasterize_gt_masks(
+            rec.get("segmentation"), rec["boxes"], rec["width"],
+            rec.get("flipped", False), g)
+    return out
 
 
 def _load_record_isolated(roidb: list, i: int, cfg: Config,
-                          scale: Tuple[int, int],
+                          scale: Tuple[int, int], with_masks: bool = False,
                           state: Optional[list] = None) -> Tuple[int, dict]:
     """``_load_record`` for a training loader: a record that fails to load
     is replaced by the next roidb record, and so on, each failure counted
@@ -104,7 +117,7 @@ def _load_record_isolated(roidb: list, i: int, cfg: Config,
     while True:
         j = (i + attempt) % n
         try:
-            out = _load_record(roidb[j], cfg, scale)
+            out = _load_record(roidb[j], cfg, scale, with_masks=with_masks)
             state[0] = 0
             return j, out
         except Exception as e:  # noqa: BLE001 — isolate, count, bound
@@ -129,8 +142,8 @@ def _stack(samples: List[dict]) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
-def _iter_samples(roidb: list, cfg: Config, plan: Plan,
-                  pool) -> Iterator[Tuple[int, dict]]:
+def _iter_samples(roidb: list, cfg: Config, plan: Plan, pool,
+                  with_masks: bool = False) -> Iterator[Tuple[int, dict]]:
     """``(actual_index, sample)`` for every row of ``plan``, in plan order:
     through the worker ``pool`` when there is one, else on the calling
     thread.  Both run ``_load_record_isolated`` per record, so the stream
@@ -138,11 +151,12 @@ def _iter_samples(roidb: list, cfg: Config, plan: Plan,
     worker in the pool."""
     tasks = [(int(i), scale) for chunk, scale in plan for i in chunk]
     if pool is not None:
-        yield from pool.imap_records(tasks)
+        yield from pool.imap_records(tasks, with_masks=with_masks)
         return
     fail_state = [0]
     for i, scale in tasks:
-        yield _load_record_isolated(roidb, i, cfg, scale, state=fail_state)
+        yield _load_record_isolated(roidb, i, cfg, scale,
+                                    with_masks=with_masks, state=fail_state)
 
 
 class _Prefetcher:
@@ -319,7 +333,10 @@ class AnchorLoader:
     ``put`` maps each batch on the producer's thread (``fit`` installs the
     copy to the card).  With ``cfg.tpu.LOADER_WORKERS`` > 0 the worker pool is made
     on the first iteration, on the consumer's thread, and reused across
-    epochs until ``close_workers()``."""
+    epochs until ``close_workers()``.  A ``HAS_MASK`` config's batches
+    carry ``gt_masks`` (``with_masks``; off for ``ROIIter``)."""
+
+    with_masks = True
 
     def __init__(self, roidb: list, cfg: Config, batch_size: int,
                  shuffle: bool = True, seed: int = 0):
@@ -434,7 +451,8 @@ class AnchorLoader:
 
     def _produce(self, plan: Plan, pool) -> Iterator[Dict[str, np.ndarray]]:
         samples: List[dict] = []
-        for j, s in _iter_samples(self.roidb, self.cfg, plan, pool):
+        for j, s in _iter_samples(self.roidb, self.cfg, plan, pool,
+                                  with_masks=self.with_masks):
             samples.append(self._sample(j, s))
             if len(samples) == self.batch_size:
                 yield _stack(samples)
@@ -456,7 +474,10 @@ class ROIIter(AnchorLoader):
     the record actually loaded (a bad record's substitute), attached in the
     parent process.  The first rows are kept where a record has more than
     the cap: right for score-sorted RPN caches, so a warning names how many
-    records lose rows."""
+    records lose rows.  No ``gt_masks``: the R-CNN stage graph has no mask
+    head."""
+
+    with_masks = False
 
     def __init__(self, roidb: list, cfg: Config, batch_size: int,
                  shuffle: bool = True, seed: int = 0):

@@ -5,7 +5,9 @@
 (``loader._load_record_isolated``: decode, pre-shrink, stage into the
 bucket) and write the staged ``uint8`` pixels into a slot of one
 ``multiprocessing.shared_memory`` segment; only the small arrays (gt,
-``im_info``, the prep sidecars) cross the result queue.  The parent's
+``im_info``, the prep sidecars) cross the result queue, and a Mask R-CNN
+config's ``uint8`` ``gt_masks`` (``MAX_GT`` · 112² bytes, 1.25 MB a record
+at ``MAX_GT`` 100) with them.  The parent's
 collector hands the samples back in task order whatever the workers'
 skew, so the batches are the serial producer's bit for bit.
 
@@ -168,12 +170,13 @@ def _maybe_crash(index: int):
 
 def _worker_main(worker_id: int, cfg, roidb, shm_name: str, slot_bytes: int,
                  task_q, result_conn):
-    """One worker: takes ``(seq, kind, payload, scale, slot)`` tasks until
-    the None sentinel.
+    """One worker: takes ``(seq, kind, payload, scale, with_masks, slot)``
+    tasks until the None sentinel.
 
     * ``"record"``: payload is a roidb index → ``_load_record_isolated``
-      (substitution included); pixels into the slot; the actual index, the
-      rest of the sample and the number of records skipped back.
+      (substitution included, ``gt_masks`` rasterised here under
+      ``with_masks``); pixels into the slot; the actual index, the rest of
+      the sample (the masks too) and the number of records skipped back.
     * ``"image"``: payload is a raw RGB uint8 array (serving) →
       ``stage_raw_to_bucket``; pixels into the slot; ``raw_hw``,
       ``ratio`` and ``im_info`` back.
@@ -203,7 +206,7 @@ def _worker_main(worker_id: int, cfg, roidb, shm_name: str, slot_bytes: int,
             msg = task_q.get()
             if msg is None:
                 return
-            seq, kind, payload, scale, slot = msg
+            seq, kind, payload, scale, with_masks, slot = msg
             t0 = time.perf_counter()
             try:
                 if slow_s:
@@ -212,7 +215,8 @@ def _worker_main(worker_id: int, cfg, roidb, shm_name: str, slot_bytes: int,
                     index = int(payload)
                     _maybe_crash(index)
                     j, sample = loader_mod._load_record_isolated(
-                        roidb, index, cfg, scale, state=fail_state)
+                        roidb, index, cfg, scale, with_masks=with_masks,
+                        state=fail_state)
                     img = sample.pop("images")
                     meta = {"index": j, "sample": sample,
                             "bad": (j - index) % len(roidb)}
@@ -381,7 +385,8 @@ class WorkerPool:
                 with self._lock:
                     self._raise_if_unusable_locked()
 
-    def _submit(self, kind: str, payload, scale) -> int:
+    def _submit(self, kind: str, payload, scale,
+                with_masks: bool = False) -> int:
         slot = self._take_slot()  # blocks: at most n_slots in flight
         with self._cond:
             try:
@@ -392,7 +397,7 @@ class WorkerPool:
             seq = self._seq
             self._seq += 1
             w = seq % self.num_workers  # the same plan, the same workers
-            msg = (seq, kind, payload, tuple(scale), slot)
+            msg = (seq, kind, payload, tuple(scale), bool(with_masks), slot)
             self._pending[seq] = _Pending(w, msg)
             # under the lock: a respawn between the registration and the
             # put would reissue this task on the fresh queue and the put
@@ -426,7 +431,7 @@ class WorkerPool:
                 busy = {p.worker for p in self._pending.values()
                         if not p.done}
                 tel.gauge("loader/worker_busy", len(busy) / self.num_workers)
-        slot = t.msg[4]
+        slot = t.msg[-1]
         if t.error is not None:
             self._free.put(slot)
             raise RuntimeError(
@@ -527,9 +532,11 @@ class WorkerPool:
 
     # -- the two entry points --------------------------------------------
 
-    def imap_records(self, tasks: Iterable[Tuple[int, tuple]]):
+    def imap_records(self, tasks: Iterable[Tuple[int, tuple]],
+                     with_masks: bool = False):
         """Ordered map over ``(roidb_index, scale)`` tasks → ``(actual_index,
-        sample)`` (the ``_load_record_isolated`` contract), in task order,
+        sample)`` (the ``_load_record_isolated`` contract, ``gt_masks``
+        under ``with_masks``), in task order,
         up to ``n_slots`` in flight.  The oldest outstanding task is always
         queued on or run by its worker, so the ordered assembly cannot
         deadlock.  Abandoned, it drains its outstanding tickets, so that
@@ -541,7 +548,8 @@ class WorkerPool:
             while tickets or i < len(tasks):
                 while i < len(tasks) and len(tickets) < self.n_slots:
                     idx, scale = tasks[i]
-                    tickets.append(self._submit("record", int(idx), scale))
+                    tickets.append(self._submit("record", int(idx), scale,
+                                                with_masks))
                     i += 1
                 img, meta = self._wait(tickets.popleft())
                 sample = {"images": img, **meta["sample"]}

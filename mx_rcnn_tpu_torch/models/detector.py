@@ -14,8 +14,9 @@ sampled RoIs → the four losses.  Labels, targets and proposals carry no
 gradient; everything else is autograd.  ``rpn_train`` and ``rcnn_train``
 are the alternate-training graphs: the RPN half with its losses, and the
 R-CNN half on given proposals.  Classic ResNet only; ``build_model`` hands
-FPN and Mask R-CNN configs to ``models/fpn.py`` (inference); VGG waits
-for a later slice.
+FPN and Mask R-CNN configs to ``models/fpn.py``, which shares the training
+pieces here (``assign_targets``, ``sample_targets``, ``rpn_loss_terms``,
+``rcnn_loss_terms``); VGG waits for a later slice.
 """
 
 from __future__ import annotations
@@ -45,6 +46,68 @@ def compute_dtype(cfg: Config) -> torch.dtype:
         raise ValueError(f"COMPUTE_DTYPE must be one of {sorted(COMPUTE_DTYPES)},"
                          f" got {name!r}")
     return COMPUTE_DTYPES[name]
+
+
+def assign_targets(cfg: Config, anchors, gt_boxes, gt_valid, im_info, draws,
+                   generator) -> dict:
+    """``assign_anchor`` with the TRAIN settings (no gradient)."""
+    tr = cfg.TRAIN
+    with torch.no_grad():
+        return assign_anchor(
+            anchors, gt_boxes, gt_valid, im_info,
+            batch_size=tr.RPN_BATCH_SIZE, fg_fraction=tr.RPN_FG_FRACTION,
+            pos_overlap=tr.RPN_POSITIVE_OVERLAP,
+            neg_overlap=tr.RPN_NEGATIVE_OVERLAP,
+            allowed_border=tr.RPN_ALLOWED_BORDER,
+            clobber_positives=tr.RPN_CLOBBER_POSITIVES,
+            iou_bf16=tr.RPN_ASSIGN_IOU_BF16,
+            fused=cfg.tpu.ASSIGN_FUSED, draws=draws, generator=generator)
+
+
+def sample_targets(cfg: Config, rois, roi_valid, gt_boxes, gt_classes,
+                   gt_valid, draws, generator) -> dict:
+    """ProposalTarget (no gradient): the gt appended to ``rois``, then
+    ``sample_rois`` with the TRAIN settings."""
+    tr = cfg.TRAIN
+    with torch.no_grad():
+        return sample_rois(
+            torch.cat([rois, gt_boxes], dim=1),
+            torch.cat([roi_valid, gt_valid], dim=1),
+            gt_boxes, gt_classes, gt_valid,
+            num_classes=cfg.NUM_CLASSES, batch_rois=tr.BATCH_ROIS,
+            fg_fraction=tr.FG_FRACTION, fg_thresh=tr.FG_THRESH,
+            bg_thresh_hi=tr.BG_THRESH_HI, bg_thresh_lo=tr.BG_THRESH_LO,
+            bbox_means=tr.BBOX_MEANS, bbox_stds=tr.BBOX_STDS,
+            draws=draws, generator=generator)
+
+
+def rpn_loss_terms(cfg: Config, rpn_cls, rpn_bbox, assign, b: int) -> dict:
+    """The two RPN losses and the raw pieces of their metrics."""
+    tr = cfg.TRAIN
+    return {
+        "rpn_cls_loss": L.softmax_ce_ignore(rpn_cls, assign["label"]),
+        "rpn_bbox_loss": L.smooth_l1(rpn_bbox, assign["bbox_target"],
+                                     assign["bbox_weight"], sigma=3.0,
+                                     norm=float(tr.RPN_BATCH_SIZE) * b),
+        "rpn_label": assign["label"],
+        "rpn_pred": torch.argmax(rpn_cls.detach(), dim=-1),
+    }
+
+
+def rcnn_loss_terms(cfg: Config, cls_logits, bbox_out, tgt, b: int) -> dict:
+    """The two R-CNN losses of the head's outputs on the sampled RoIs and
+    the raw pieces of their metrics."""
+    tr = cfg.TRAIN
+    return {
+        "rcnn_cls_loss": L.softmax_ce_weighted(cls_logits, tgt["label"],
+                                               tgt["label_weight"]),
+        "rcnn_bbox_loss": L.smooth_l1(bbox_out, tgt["bbox_target"],
+                                      tgt["bbox_weight"], sigma=1.0,
+                                      norm=float(tr.BATCH_ROIS) * b),
+        "rcnn_label": tgt["label"],
+        "rcnn_pred": torch.argmax(cls_logits.detach(), dim=-1),
+        "rcnn_label_weight": tgt["label_weight"],
+    }
 
 
 class FasterRCNN(nn.Module):
@@ -99,64 +162,10 @@ class FasterRCNN(nn.Module):
                            mode=self.cfg.tpu.ROI_MODE)
         return self.rcnn_out(self.head_body(pooled))
 
-    def _assign(self, anchors, gt_boxes, gt_valid, im_info, draws,
-                generator):
-        """``assign_anchor`` with the TRAIN settings (no gradient)."""
-        tr = self.cfg.TRAIN
-        with torch.no_grad():
-            return assign_anchor(
-                anchors, gt_boxes, gt_valid, im_info,
-                batch_size=tr.RPN_BATCH_SIZE, fg_fraction=tr.RPN_FG_FRACTION,
-                pos_overlap=tr.RPN_POSITIVE_OVERLAP,
-                neg_overlap=tr.RPN_NEGATIVE_OVERLAP,
-                allowed_border=tr.RPN_ALLOWED_BORDER,
-                clobber_positives=tr.RPN_CLOBBER_POSITIVES,
-                iou_bf16=tr.RPN_ASSIGN_IOU_BF16,
-                fused=self.cfg.tpu.ASSIGN_FUSED, draws=draws,
-                generator=generator)
-
-    def _sample(self, rois, roi_valid, gt_boxes, gt_classes, gt_valid, draws,
-                generator):
-        """ProposalTarget (no gradient): the gt appended to ``rois``, then
-        ``sample_rois`` with the TRAIN settings."""
-        cfg = self.cfg
-        tr = cfg.TRAIN
-        with torch.no_grad():
-            return sample_rois(
-                torch.cat([rois, gt_boxes], dim=1),
-                torch.cat([roi_valid, gt_valid], dim=1),
-                gt_boxes, gt_classes, gt_valid,
-                num_classes=cfg.NUM_CLASSES, batch_rois=tr.BATCH_ROIS,
-                fg_fraction=tr.FG_FRACTION, fg_thresh=tr.FG_THRESH,
-                bg_thresh_hi=tr.BG_THRESH_HI, bg_thresh_lo=tr.BG_THRESH_LO,
-                bbox_means=tr.BBOX_MEANS, bbox_stds=tr.BBOX_STDS,
-                draws=draws, generator=generator)
-
-    def _rpn_losses(self, rpn_cls, rpn_bbox, assign, b: int) -> dict:
-        tr = self.cfg.TRAIN
-        return {
-            "rpn_cls_loss": L.softmax_ce_ignore(rpn_cls, assign["label"]),
-            "rpn_bbox_loss": L.smooth_l1(rpn_bbox, assign["bbox_target"],
-                                         assign["bbox_weight"], sigma=3.0,
-                                         norm=float(tr.RPN_BATCH_SIZE) * b),
-            "rpn_label": assign["label"],
-            "rpn_pred": torch.argmax(rpn_cls.detach(), dim=-1),
-        }
-
     def _rcnn_losses(self, feat, tgt, b: int) -> dict:
         """The R-CNN head on the sampled RoIs and its two losses."""
-        tr = self.cfg.TRAIN
         cls_logits, bbox_out = self._rcnn_head(feat, tgt["rois"])
-        return {
-            "rcnn_cls_loss": L.softmax_ce_weighted(cls_logits, tgt["label"],
-                                                   tgt["label_weight"]),
-            "rcnn_bbox_loss": L.smooth_l1(bbox_out, tgt["bbox_target"],
-                                          tgt["bbox_weight"], sigma=1.0,
-                                          norm=float(tr.BATCH_ROIS) * b),
-            "rcnn_label": tgt["label"],
-            "rcnn_pred": torch.argmax(cls_logits.detach(), dim=-1),
-            "rcnn_label_weight": tgt["label_weight"],
-        }
+        return rcnn_loss_terms(self.cfg, cls_logits, bbox_out, tgt, b)
 
     def forward(self, images, im_info, gt_boxes, gt_classes, gt_valid, *,
                 draws: Optional[dict] = None,
@@ -183,8 +192,8 @@ class FasterRCNN(nn.Module):
         feat = self.backbone(images)
         anchors = self._anchors_for(feat.shape[1], feat.shape[2], feat.device)
         rpn_cls, rpn_bbox = self.rpn(feat)                 # (B, N, 2), (B, N, 4)
-        assign = self._assign(anchors, gt_boxes, gt_valid, im_info,
-                              draws.get("rpn"), generator)
+        assign = assign_targets(self.cfg, anchors, gt_boxes, gt_valid, im_info,
+                                draws.get("rpn"), generator)
         with torch.no_grad():
             # the Proposal op: non-differentiable by contract
             rois, _, roi_valid = propose(
@@ -193,9 +202,9 @@ class FasterRCNN(nn.Module):
                 post_nms_top_n=tr.RPN_POST_NMS_TOP_N,
                 nms_thresh=tr.RPN_NMS_THRESH, min_size=tr.RPN_MIN_SIZE,
                 use_kernel=tr.CXX_PROPOSAL)
-        tgt = self._sample(rois, roi_valid, gt_boxes, gt_classes, gt_valid,
-                           draws.get("rcnn"), generator)
-        aux = {**self._rpn_losses(rpn_cls, rpn_bbox, assign, b),
+        tgt = sample_targets(self.cfg, rois, roi_valid, gt_boxes, gt_classes,
+                             gt_valid, draws.get("rcnn"), generator)
+        aux = {**rpn_loss_terms(self.cfg, rpn_cls, rpn_bbox, assign, b),
                **self._rcnn_losses(feat, tgt, b)}
         total = (aux["rpn_cls_loss"] + aux["rpn_bbox_loss"]
                  + aux["rcnn_cls_loss"] + aux["rcnn_bbox_loss"])
@@ -213,9 +222,9 @@ class FasterRCNN(nn.Module):
         feat = self.backbone(images)
         anchors = self._anchors_for(feat.shape[1], feat.shape[2], feat.device)
         rpn_cls, rpn_bbox = self.rpn(feat)
-        assign = self._assign(anchors, gt_boxes, gt_valid, im_info,
-                              (draws or {}).get("rpn"), generator)
-        aux = self._rpn_losses(rpn_cls, rpn_bbox, assign, b)
+        assign = assign_targets(self.cfg, anchors, gt_boxes, gt_valid, im_info,
+                                (draws or {}).get("rpn"), generator)
+        aux = rpn_loss_terms(self.cfg, rpn_cls, rpn_bbox, assign, b)
         return aux["rpn_cls_loss"] + aux["rpn_bbox_loss"], aux
 
     def rcnn_train(self, images, im_info, rois, roi_valid, gt_boxes,
@@ -230,9 +239,9 @@ class FasterRCNN(nn.Module):
         del im_info  # the RoIs arrive in the scaled frame
         b = images.shape[0]
         feat = self.backbone(images)
-        tgt = self._sample(rois.to(torch.float32), roi_valid, gt_boxes,
-                           gt_classes, gt_valid, (draws or {}).get("rcnn"),
-                           generator)
+        tgt = sample_targets(self.cfg, rois.to(torch.float32), roi_valid,
+                             gt_boxes, gt_classes, gt_valid,
+                             (draws or {}).get("rcnn"), generator)
         aux = self._rcnn_losses(feat, tgt, b)
         return aux["rcnn_cls_loss"] + aux["rcnn_bbox_loss"], aux
 

@@ -1,9 +1,11 @@
-"""FPN Faster R-CNN and Mask R-CNN inference (counterpart of
+"""FPN Faster R-CNN and Mask R-CNN (counterpart of
 ``mx_rcnn_tpu/models/fpn.py``: ``FPNNeck``, ``_upsample2``,
 ``FPNBoxHead``, ``FPNFasterRCNN``'s ``_pyramid``, ``_anchors_for_level``,
 ``_rpn_over_levels``, ``_assign_level``, ``_pool_levels``, ``_box_head``,
-``predict``, ``predict_with_feats``, ``masks_from_feats``,
-``predict_masks`` and ``predict_rpn``).
+the training graphs ``__call__``, ``rpn_train`` and ``rcnn_train`` with
+``_rpn_losses``, ``_propose_train`` and ``_rcnn_losses``, and ``predict``,
+``predict_with_feats``, ``masks_from_feats``, ``predict_masks`` and
+``predict_rpn``).
 
 * neck: lateral 1×1 convs on C2–C5, nearest 2× top-down upsampling,
   3×3 smoothing → P2–P5 (256 channels); P6 = P5[:, ::2, ::2] (flax's
@@ -21,13 +23,23 @@
 * mask head (``HAS_MASK``): 14×14 ROIAlign on the assigned level →
   ``heads.MaskHead`` → the label's 28×28 logits → sigmoid.
 
-Training (``forward``, ``rpn_train``, ``rcnn_train``) is not ported yet
-and raises by name (ROADMAP.md A.10, FPN/Mask training).
+Training (``forward``) is the C4 graph's over the pyramid: one
+``assign_anchor`` an image over the concatenated P2–P6 anchors (the fused
+assign kernels under ``ASSIGN_FUSED``) and the two RPN losses;
+``propose_fpn`` at the TRAIN config on the detached RPN outputs (the NMS
+kernels); the gt appended, ``sample_rois``, the box head on the sampled
+RoIs and the two R-CNN losses; and, for a mask config given ``gt_masks``,
+the mask head on 14×14 pools of the sampled RoIs, the label's channel,
+``ops/mask_target.py``'s targets on each RoI's matched gt, and
+``mask_bce`` weighted by ``is_fg · (label > 0)``, per image and then
+averaged over the batch as the JAX ``vmap(...).mean()`` does.
+``rpn_train`` and ``rcnn_train`` are the alternate-training stage graphs;
+``rcnn_train`` of a mask config raises, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -36,15 +48,19 @@ import torch.nn.functional as F
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.models.backbones import (ResNetConv, nchw_to_nhwc,
                                                 nhwc_to_nchw)
-from mx_rcnn_tpu_torch.models.detector import compute_dtype
+from mx_rcnn_tpu_torch.models.detector import (assign_targets, compute_dtype,
+                                               rcnn_loss_terms, rpn_loss_terms,
+                                               sample_targets)
 from mx_rcnn_tpu_torch.models.heads import MaskHead, RCNNOutput, RPNHead
-from mx_rcnn_tpu_torch.models.losses import fg_prob
+from mx_rcnn_tpu_torch.models.losses import fg_prob, mask_bce
 from mx_rcnn_tpu_torch.ops.anchors import all_anchors, generate_anchors
+from mx_rcnn_tpu_torch.ops.mask_target import mask_targets_for_rois
 from mx_rcnn_tpu_torch.ops.proposal import propose_fpn
 from mx_rcnn_tpu_torch.ops.roi_align import roi_align
 
-_TRAINING = ("FPN and Mask R-CNN training is not ported yet (ROADMAP.md "
-             "A.10, FPN/Mask training): {} of {!r}")
+# the JAX package's refusal (mx_rcnn_tpu/models/fpn.py:rcnn_train)
+NO_MASK_ALTERNATE = ("alternate training has no mask-target path; train "
+                     "mask configs end2end (train_end2end.py)")
 
 
 def _conv(conv: nn.Conv2d, x, dtype):
@@ -116,7 +132,7 @@ def assign_level(rois: torch.Tensor) -> torch.Tensor:
 
 class FPNFasterRCNN(nn.Module):
     """Multi-level two-stage detector on a ResNet body, with a mask head
-    when ``cfg.network.HAS_MASK``; inference only."""
+    when ``cfg.network.HAS_MASK``."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -169,18 +185,23 @@ class FPNFasterRCNN(nn.Module):
                 feat.shape[1], feat.shape[2], stride, feat.device)))
         return out
 
-    def _proposals(self, feats, im_info):
-        te = self.cfg.TEST
-        levels = self._rpn_over_levels(feats)
+    @staticmethod
+    def _propose(levels, im_info, conf):
+        """``propose_fpn`` over the levels' RPN outputs with ``conf``'s
+        (TRAIN or TEST) settings → ``(rois, roi_scores, roi_valid)``."""
         return propose_fpn([fg_prob(c) for c, _, _ in levels],
                            [b for _, b, _ in levels],
                            [a for _, _, a in levels],
                            im_info.to(torch.float32),
-                           pre_nms_top_n=te.RPN_PRE_NMS_TOP_N,
-                           post_nms_top_n=te.RPN_POST_NMS_TOP_N,
-                           nms_thresh=te.RPN_NMS_THRESH,
-                           min_size=te.RPN_MIN_SIZE,
-                           use_kernel=te.CXX_PROPOSAL)
+                           pre_nms_top_n=conf.RPN_PRE_NMS_TOP_N,
+                           post_nms_top_n=conf.RPN_POST_NMS_TOP_N,
+                           nms_thresh=conf.RPN_NMS_THRESH,
+                           min_size=conf.RPN_MIN_SIZE,
+                           use_kernel=conf.CXX_PROPOSAL)
+
+    def _proposals(self, feats, im_info):
+        return self._propose(self._rpn_over_levels(feats), im_info,
+                             self.cfg.TEST)
 
     def _pool_levels(self, feats, rois, pooled: int):
         """(B, R, 4) image-frame RoIs → (B, R, P, P, C) pooled from each
@@ -201,19 +222,120 @@ class FPNFasterRCNN(nn.Module):
     def _box_head(self, feats, rois):
         return self.rcnn_out(self.head_body(self._pool_levels(feats, rois, 7)))
 
-    # ---- training: not ported ----------------------------------------------
+    def _label_channel(self, logits, labels):
+        """(B, R, M, M, K) per-class mask logits → (B, R, M, M), each RoI's
+        ``labels`` channel (a gather: the JAX one-hot product picks the
+        same float32 value)."""
+        idx = labels.to(torch.int64)[:, :, None, None, None].expand(
+            -1, -1, logits.shape[2], logits.shape[3], 1)
+        return torch.gather(logits, -1, idx)[..., 0]
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING.format("training",
-                                                   self.cfg.network.NETWORK))
+    # ---- the training pieces (end to end and the stage graphs) -------------
 
-    def rpn_train(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING.format("rpn_train",
-                                                   self.cfg.network.NETWORK))
+    def _rpn_losses(self, levels, im_info, gt_boxes, gt_valid, draws,
+                    generator) -> dict:
+        """One ``assign_anchor`` an image over the concatenated level
+        anchors, then the two RPN losses (normalised by ``RPN_BATCH_SIZE ·
+        B``)."""
+        cls = torch.cat([c for c, _, _ in levels], dim=1)
+        bbox = torch.cat([b for _, b, _ in levels], dim=1)
+        anchors = torch.cat([a for _, _, a in levels], dim=0)
+        assign = assign_targets(self.cfg, anchors, gt_boxes, gt_valid,
+                                im_info, draws, generator)
+        return rpn_loss_terms(self.cfg, cls, bbox, assign, gt_boxes.shape[0])
 
-    def rcnn_train(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING.format("rcnn_train",
-                                                   self.cfg.network.NETWORK))
+    def _rcnn_losses(self, feats, rois, roi_valid, gt_boxes, gt_classes,
+                     gt_valid, draws, generator):
+        """``sample_rois`` on the proposals with the gt appended, the box
+        head on the sampled RoIs and its two losses → ``(aux, targets)``."""
+        tgt = sample_targets(self.cfg, rois, roi_valid, gt_boxes, gt_classes,
+                             gt_valid, draws, generator)
+        cls_logits, bbox_out = self._box_head(feats, tgt["rois"])
+        return rcnn_loss_terms(self.cfg, cls_logits, bbox_out, tgt,
+                               gt_boxes.shape[0]), tgt
+
+    def _mask_loss(self, feats, tgt, gt_masks, gt_boxes):
+        """The mask head on the sampled RoIs against their targets: the
+        BCE of each image's weighted RoIs, averaged over the batch."""
+        logits = self.mask_head(self._pool_levels(feats, tgt["rois"], 14))
+        logit = self._label_channel(logits, tgt["label"])
+        with torch.no_grad():
+            targets = mask_targets_for_rois(
+                gt_masks, gt_boxes, tgt["rois"], tgt["gt_index"],
+                out_size=self.cfg.TRAIN.MASK_SIZE)
+            weight = tgt["is_fg"].to(torch.float32) * (tgt["label"] > 0)
+        return mask_bce(logit, targets, weight).mean()
+
+    # ---- the training graphs -----------------------------------------------
+
+    def forward(self, images, im_info, gt_boxes, gt_classes, gt_valid,
+                gt_masks: Optional[torch.Tensor] = None, *,
+                draws: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None):
+        """One training forward pass (``FasterRCNN.forward``'s contract
+        over the pyramid).
+
+        Args:
+          images: (B, H, W, 3|12) NHWC network input (after device prep).
+          im_info: (B, 3) float32; gt_boxes (B, G, 4) float32; gt_classes
+            (B, G) int; gt_valid (B, G) bool.
+          gt_masks: (B, G, S, S) gt-box-frame masks (``uint8`` or float),
+            for the mask loss of a ``HAS_MASK`` config; without them the
+            mask head gets no loss, as in the JAX package.
+          draws: optional ``{"rpn": (fg, bg), "rcnn": (fg, bg)}``, (B, N)
+            over the concatenated anchors and (B, TRAIN post-NMS + G);
+            drawn from ``generator`` when absent.
+
+        Returns ``(total_loss, aux)`` with the four losses, ``mask_loss``
+        when it is computed, and the raw pieces of the metrics.
+        """
+        draws = draws or {}
+        im_info = im_info.to(torch.float32)
+        feats = self._pyramid(images)
+        levels = self._rpn_over_levels(feats)
+        aux = self._rpn_losses(levels, im_info, gt_boxes, gt_valid,
+                               draws.get("rpn"), generator)
+        with torch.no_grad():
+            # the Proposal op: non-differentiable by contract
+            rois, _, roi_valid = self._propose(levels, im_info,
+                                               self.cfg.TRAIN)
+        rcnn, tgt = self._rcnn_losses(feats, rois, roi_valid, gt_boxes,
+                                      gt_classes, gt_valid, draws.get("rcnn"),
+                                      generator)
+        aux.update(rcnn)
+        total = (aux["rpn_cls_loss"] + aux["rpn_bbox_loss"]
+                 + aux["rcnn_cls_loss"] + aux["rcnn_bbox_loss"])
+        if self.has_mask and gt_masks is not None:
+            aux["mask_loss"] = self._mask_loss(feats, tgt, gt_masks, gt_boxes)
+            total = total + aux["mask_loss"]
+        return total, aux
+
+    def rpn_train(self, images, im_info, gt_boxes, gt_valid, *,
+                  draws: Optional[dict] = None,
+                  generator: Optional[torch.Generator] = None):
+        """The RPN-only graph over the pyramid (alternate stages 1 and 4):
+        ``draws``: optional ``{"rpn": (fg, bg)}``, each (B, N)."""
+        levels = self._rpn_over_levels(self._pyramid(images))
+        aux = self._rpn_losses(levels, im_info.to(torch.float32), gt_boxes,
+                               gt_valid, (draws or {}).get("rpn"), generator)
+        return aux["rpn_cls_loss"] + aux["rpn_bbox_loss"], aux
+
+    def rcnn_train(self, images, im_info, rois, roi_valid, gt_boxes,
+                   gt_classes, gt_valid, *, draws: Optional[dict] = None,
+                   generator: Optional[torch.Generator] = None):
+        """The box head on given proposals (alternate stages 3 and 6):
+        ``rois`` (B, P, 4) in the scaled frame; ``draws``: optional
+        ``{"rcnn": (fg, bg)}``, each (B, P + G).  A mask config raises:
+        the stage pipeline has no mask targets, and a mask head left at
+        its initial weights would give garbage masks."""
+        if self.has_mask:
+            raise NotImplementedError(NO_MASK_ALTERNATE)
+        del im_info  # the RoIs arrive in the scaled frame
+        aux, _ = self._rcnn_losses(self._pyramid(images),
+                                   rois.to(torch.float32), roi_valid,
+                                   gt_boxes, gt_classes, gt_valid,
+                                   (draws or {}).get("rcnn"), generator)
+        return aux["rcnn_cls_loss"] + aux["rcnn_bbox_loss"], aux
 
     # ---- inference ---------------------------------------------------------
 
@@ -236,9 +358,7 @@ class FPNFasterRCNN(nn.Module):
         scaled frame and (B, R) labels → (B, R, 28, 28) float32 sigmoid
         probabilities of each box's label."""
         logits = self.mask_head(self._pool_levels(feats, boxes, 14))
-        idx = labels.to(torch.int64)[:, :, None, None, None].expand(
-            -1, -1, logits.shape[2], logits.shape[3], 1)
-        return torch.sigmoid(torch.gather(logits, -1, idx)[..., 0])
+        return torch.sigmoid(self._label_channel(logits, labels))
 
     def predict_masks(self, images, im_info, boxes, labels):
         """The mask branch from raw images (the pyramid computed again)."""

@@ -7,7 +7,8 @@ Explicit-mask equivalents of the reference's MXNet loss ops:
 * RPN bbox: ``smooth_l1(sigma=3)`` / RPN_BATCH_SIZE → :func:`smooth_l1`;
 * RCNN cls: ``SoftmaxOutput(normalization='batch')`` →
   :func:`softmax_ce_weighted`;
-* RCNN bbox: ``smooth_l1(sigma=1)`` / BATCH_ROIS → :func:`smooth_l1`.
+* RCNN bbox: ``smooth_l1(sigma=1)`` / BATCH_ROIS → :func:`smooth_l1`;
+* Mask R-CNN: per-pixel sigmoid BCE over the fg RoIs → :func:`mask_bce`.
 
 Every reduction runs in float32 whatever the compute dtype.  ``fg_prob``
 is the RPN objectness the proposal op reads.
@@ -65,6 +66,21 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
     ax = torch.abs(x)
     val = torch.where(ax < 1.0 / s2, 0.5 * s2 * x * x, ax - 0.5 / s2)
     return val.sum() / norm
+
+
+def mask_bce(logits: torch.Tensor, target: torch.Tensor,
+             weight: torch.Tensor) -> torch.Tensor:
+    """Per-pixel sigmoid BCE of the mask head in float32, averaged over the
+    pixels of the weighted RoIs: logits and target (…, R, M, M), weight
+    (…, R) (1 on fg RoIs); the denominator ``sum(weight)`` is clamped at 1.
+    Reduces over R only, so that a batch (B, R, …) gives each image's loss
+    (the JAX package's ``vmap(mask_bce)``)."""
+    logits = logits.to(torch.float32)
+    per_pix = (torch.clamp_min(logits, 0) - logits * target
+               + torch.log1p(torch.exp(-torch.abs(logits))))
+    per_roi = per_pix.mean(dim=(-1, -2))
+    return ((per_roi * weight).sum(dim=-1)
+            / torch.clamp_min(weight.sum(dim=-1), 1.0))
 
 
 def fg_prob(cls_logits: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ import torch
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """float32 matmuls in full precision for the block (torch's flag is
     process-wide; it is restored on exit)."""
     old = torch.backends.cuda.matmul.allow_tf32
@@ -74,7 +74,7 @@ def paste_masks(probs: torch.Tensor, boxes: torch.Tensor, hp: int, wp: int,
     boxes = boxes.to(torch.float32)
     bitw = (1 << torch.arange(8, device=probs.device)).to(torch.uint8)
     out = []
-    with _no_tf32():
+    with no_tf32():
         for c0 in range(0, r, chunk):
             p = probs[:, c0:c0 + chunk]                     # (B, C, M, M)
             bx = boxes[:, c0:c0 + chunk]

@@ -58,7 +58,9 @@ def sample_rois(rois: torch.Tensor, roi_valid: torch.Tensor,
 
     Returns dict with ``rois`` (B, S, 4), ``label`` (B, S) int32,
     ``label_weight`` (B, S) float32, ``bbox_target`` and ``bbox_weight``
-    (B, S, 4·num_classes) float32, S = ``batch_rois``.
+    (B, S, 4·num_classes) float32, and for the mask head's targets
+    ``gt_index`` (B, S) int64 (each row's matched gt) and ``is_fg`` (B, S)
+    bool; S = ``batch_rois``.
     """
     b, r, _ = rois.shape
     dev = rois.device
@@ -119,4 +121,4 @@ def sample_rois(rois: torch.Tensor, roi_valid: torch.Tensor,
     return {"rois": sampled_rois, "label": label,
             "label_weight": label_weight,
             "bbox_target": bbox_target * bbox_weight,
-            "bbox_weight": bbox_weight}
+            "bbox_weight": bbox_weight, "gt_index": gt_idx, "is_fg": is_fg}

@@ -164,15 +164,13 @@ def config_from_args(args, train: bool = True) -> Config:
 
 
 def refuse_fpn(cfg: Config, what: str) -> None:
-    """Raise by name when ``what`` (a driver) is asked for an FPN or Mask
-    R-CNN network, whose training and serving are not ported yet."""
+    """Raise by name when ``what`` (a serving driver) is asked for an FPN
+    or Mask R-CNN network, whose serving is not ported yet."""
     if cfg.network.HAS_FPN:
-        item = ("FPN/Mask training" if "train" in what
-                else "FPN serving")
         raise NotImplementedError(
             f"{what} of an FPN network ({cfg.network.NETWORK}, HAS_FPN, "
             f"HAS_MASK={cfg.network.HAS_MASK}) is not ported yet: "
-            f"ROADMAP.md A.10, {item}")
+            f"ROADMAP.md A.10, FPN serving")
 
 
 def get_imdb(args, cfg: Config, test: bool = False):

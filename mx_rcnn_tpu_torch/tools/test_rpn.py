@@ -6,8 +6,9 @@ cpu``.
     python -m mx_rcnn_tpu_torch.tools.test_rpn --synthetic \\
         --prefix model/rpn --epoch 1
 
-The RPN-only test graph (``FasterRCNN.predict_rpn``: the NMS kernels,
-once a batch) over the roidb, one image a batch, through ``Predictor``;
+The RPN-only test graph (``FasterRCNN.predict_rpn``, or
+``FPNFasterRCNN.predict_rpn``'s joint proposal: the NMS kernels, once a
+batch) over the roidb, one image a batch, through ``Predictor``;
 each record gets its proposals in the original frame, and the list is
 pickled to ``{root_path}/cache/{imdb.name}_rpn_proposals.pkl``.  The
 records are read on this thread, or with ``--prefetch`` on the loader's

@@ -8,7 +8,8 @@ card unless given ``--device cpu``.
 
 ``--proposals`` names a ``test_rpn`` cache (aligned with the gt roidb);
 it is attached before the flip, which mirrors it.  ``ROIIter`` ships the
-proposals, and ``FasterRCNN.rcnn_train`` samples the RoIs on the device.
+proposals, and ``FasterRCNN.rcnn_train`` (``FPNFasterRCNN.rcnn_train`` for
+an FPN network; a mask network raises) samples the RoIs on the device.
 Selective-search proposals are not ported.  With ``--prefix`` every epoch
 writes ``{prefix}-{epoch:04d}.npz``.  ``--loader-workers`` and
 ``--prefetch`` shape the loader; its workers end with the stage.

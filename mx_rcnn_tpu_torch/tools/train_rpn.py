@@ -6,8 +6,9 @@ cpu``.
     python -m mx_rcnn_tpu_torch.tools.train_rpn --synthetic --num-steps 5
 
 The loader is end2end's ``AnchorLoader``; the graph is
-``FasterRCNN.rpn_train`` (body, RPN head, the RPN losses; the assign
-kernels when ``tpu.ASSIGN_FUSED``).  With ``--prefix`` every epoch writes
+``FasterRCNN.rpn_train``, or ``FPNFasterRCNN.rpn_train`` over the pyramid
+for an FPN network (body, RPN head, the RPN losses; the assign kernels
+when ``tpu.ASSIGN_FUSED``).  With ``--prefix`` every epoch writes
 ``{prefix}-{epoch:04d}.npz``.  ``--loader-workers`` and ``--prefetch``
 shape the loader (``data/loader.py``); its workers end with the stage.
 """

@@ -1,5 +1,6 @@
-"""The six reference training metrics (counterpart of
-``mx_rcnn_tpu/train/metric.py``; reference ``rcnn/core/metric.py``).
+"""The six reference training metrics and Mask R-CNN's mask loss
+(counterpart of ``mx_rcnn_tpu/train/metric.py``; reference
+``rcnn/core/metric.py``).
 
 | Reference class    | Key         | Definition                                    |
 |--------------------|-------------|-----------------------------------------------|
@@ -9,6 +10,7 @@
 | RCNNAccMetric      | RCNNAcc     | argmax accuracy over weighted sampled RoIs    |
 | RCNNLogLossMetric  | RCNNLogLoss | the RCNN softmax CE (batch-normalized)        |
 | RCNNL1LossMetric   | RCNNL1Loss  | the RCNN smooth-L1 loss                       |
+| (Mask R-CNN)       | MaskLoss    | the mask head's sigmoid BCE                   |
 
 ``metric_scalars`` leaves its scalars on the device (no synchronisation);
 ``MetricBank`` keeps the running means of the values the trainer fetches.
@@ -20,7 +22,8 @@ import torch
 
 
 def metric_scalars(aux: dict) -> dict:
-    """Fold a train step's ``aux`` into the six named 0-dim tensors."""
+    """Fold a train step's ``aux`` into the named 0-dim tensors: the six
+    reference metrics, and ``MaskLoss`` where the graph has a mask head."""
     out = {}
     if "rpn_label" in aux:
         valid = aux["rpn_label"] != -1
@@ -35,6 +38,8 @@ def metric_scalars(aux: dict) -> dict:
         out["RCNNAcc"] = correct.sum() / torch.clamp_min(w.sum(), 1.0)
         out["RCNNLogLoss"] = aux["rcnn_cls_loss"].detach()
         out["RCNNL1Loss"] = aux["rcnn_bbox_loss"].detach()
+    if "mask_loss" in aux:
+        out["MaskLoss"] = aux["mask_loss"].detach()
     return out
 
 

@@ -76,6 +76,8 @@ def _loss(model: nn.Module, batch: dict, graph: str, draws, generator):
     JAX package's ``_loss_fn`` reads them."""
     kw = dict(draws=draws, generator=generator)
     if graph == "end2end":
+        if "gt_masks" in batch:  # a Mask R-CNN config's loader batches
+            kw["gt_masks"] = batch["gt_masks"]
         return model(batch["images"], batch["im_info"], batch["gt_boxes"],
                      batch["gt_classes"], batch["gt_valid"], **kw)
     if graph == "rpn":
@@ -126,8 +128,9 @@ def make_train_step(cfg: Config, graph: str = "end2end",
     """``train_step(state, batch, *, draws=None, generator=None) ->
     (state, metrics)`` of the ``graph`` (``"end2end"``, ``"rpn"`` or
     ``"rcnn"``): ``batch`` holds the device tensors ``images`` (prepped),
-    ``im_info``, ``gt_boxes``, ``gt_classes``, ``gt_valid``, and for
-    ``"rcnn"`` ``rois``/``roi_valid``; ``draws``/``generator`` feed the
+    ``im_info``, ``gt_boxes``, ``gt_classes``, ``gt_valid``, for a mask
+    config's ``"end2end"`` ``gt_masks``, and for ``"rcnn"``
+    ``rois``/``roi_valid``; ``draws``/``generator`` feed the
     model's sampling.  Updates ``state`` in place.  ``sentinel`` adds
     ``all_finite`` to the metrics; ``skip_nonfinite`` (which needs it)
     keeps the parameters and momentum of a non-finite step."""

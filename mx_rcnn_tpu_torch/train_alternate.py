@@ -14,8 +14,12 @@ card unless given ``--device cpu``.
 5. proposals again, from stage 4;
 6. train Fast R-CNN again from stage 4's weights, ``FIXED_PARAMS_SHARED``
    frozen;
-7. ``utils/combine_model.py``: stage 4's backbone and RPN with stage 6's
-   head.
+7. ``utils/combine_model.py``: stage 4's backbone, FPN neck and RPN with
+   stage 6's head.
+
+An FPN network (``--network resnet101_fpn``) runs the same stages on its
+pyramid graphs, its ``FIXED_PARAMS_SHARED`` freezing the neck's
+``lateral``/``post`` convs in stages 4 and 6.
 
 The stages run in one process and hand each other their weights, as the
 JAX driver does; ``--loader-workers`` and ``--prefetch`` reach every
@@ -27,8 +31,8 @@ and ``--nan-policy rollback`` are refused; ``--nan-policy halt`` and
 model is saved de-normalised as the port's flat ``{prefix}-{end_epoch:04d}
 .npz``, which ``python -m mx_rcnn_tpu_torch.test --epoch end_epoch`` loads;
 the JAX driver saves it through orbax's ``CheckpointManager``, which is not
-ported (ROADMAP.md A.5.3).  Mask configs raise: the alternate graphs have
-no mask head.
+ported (ROADMAP.md A.5.3).  Mask configs raise before any stage runs,
+with the JAX driver's message: the alternate graphs have no mask targets.
 """
 
 from __future__ import annotations
@@ -38,9 +42,10 @@ import argparse
 from mx_rcnn_tpu_torch.eval.tester import resolve_device
 from mx_rcnn_tpu_torch.logger import logger, setup_logging
 from mx_rcnn_tpu_torch.models.detector import build_model
+from mx_rcnn_tpu_torch.models.fpn import NO_MASK_ALTERNATE
 from mx_rcnn_tpu_torch.tools.common import (add_common_args, config_from_args,
                                             get_imdb, get_train_roidb,
-                                            init_or_load_params, refuse_fpn)
+                                            init_or_load_params)
 from mx_rcnn_tpu_torch.tools.test_rpn import test_rpn
 from mx_rcnn_tpu_torch.tools.train_rcnn import train_rcnn
 from mx_rcnn_tpu_torch.tools.train_rpn import train_rpn
@@ -85,7 +90,8 @@ def alternate_train(args) -> Params:
         raise ValueError(f"{', '.join(bad)}: the alternate stages write no "
                          f"checkpoints")
     cfg = config_from_args(args, train=True)
-    refuse_fpn(cfg, "train_alternate")
+    if cfg.network.HAS_MASK:
+        raise NotImplementedError(NO_MASK_ALTERNATE)
     imdb = get_imdb(args, cfg)
     roidb = get_train_roidb(imdb, cfg)
     params = init_or_load_params(args, build_model(cfg))

@@ -1,16 +1,20 @@
-"""End-to-end Faster R-CNN training (counterpart of the JAX package's
-``train_end2end.py``), on the card unless given ``--device cpu``.
+"""End-to-end Faster R-CNN, FPN and Mask R-CNN training (counterpart of
+the JAX package's ``train_end2end.py``), on the card unless given
+``--device cpu``.
 
     python -m mx_rcnn_tpu_torch.train_end2end --synthetic --num-steps 5
     python -m mx_rcnn_tpu_torch.train_end2end --image_set 2007_trainval \\
         --dataset_path data/VOCdevkit --pretrained model/resnet101.npz
+    python -m mx_rcnn_tpu_torch.train_end2end --network resnet101_fpn_mask \\
+        --dataset coco --dataset_path data/coco
 
 generate_config (+ ``--cfg PATH=VALUE`` overrides, ``--lr``,
 ``--lr_step``, ``--no_flip``, ``--no_shuffle``, ``--loader-workers``,
 ``--prefetch``) → the dataset
-(``tools/common.py:get_imdb``: PASCAL VOC read from disk, or the synthetic
-imdb with ``--synthetic``) → flip → filter → ``AnchorLoader`` of
-``--batch_images`` (default ``TRAIN.BATCH_IMAGES``) → seeded random
+(``tools/common.py:get_imdb``: PASCAL VOC or COCO read from disk, or the
+synthetic imdb with ``--synthetic``) → flip → filter → ``AnchorLoader`` of
+``--batch_images`` (default ``TRAIN.BATCH_IMAGES``; a Mask R-CNN network's
+batches carry the rasterised ``gt_masks``) → seeded random
 weights in the JAX layout with the ``--pretrained`` ``.npz`` laid over
 them (``tools/common.py:init_or_load_params``) → ``fit`` over epochs
 ``--begin_epoch`` … ``--end_epoch − 1``, with an epoch checkpoint
@@ -41,7 +45,7 @@ from mx_rcnn_tpu_torch.models.detector import build_model
 from mx_rcnn_tpu_torch.tools.common import (add_common_args, cap_steps,
                                             config_from_args, get_imdb,
                                             get_train_roidb,
-                                            init_or_load_params, refuse_fpn)
+                                            init_or_load_params)
 from mx_rcnn_tpu_torch.train.resilience import ResilienceOptions
 from mx_rcnn_tpu_torch.train.trainer import fit
 
@@ -57,7 +61,6 @@ def train_net(args):
     setup_logging()
     device = resolve_device(args.device)
     cfg = config_from_args(args, train=True)
-    refuse_fpn(cfg, "train_end2end")
     imdb = get_imdb(args, cfg)
     roidb = get_train_roidb(imdb, cfg)
     batch_size = args.batch_images or cfg.TRAIN.BATCH_IMAGES

@@ -10,22 +10,26 @@ from typing import Dict
 
 import numpy as np
 
-# top-level groups taken from each stage
-RPN_KEYS = ("backbone", "rpn")
-RCNN_KEYS = ("head_body", "rcnn_out")
+# top-level groups taken from each stage; the FPN neck is shared with the
+# RPN, and the mask head rides with the R-CNN head
+RPN_KEYS = ("backbone", "neck", "rpn")
+RCNN_KEYS = ("head_body", "rcnn_out", "mask_head")
+# the groups every detector has; the neck and the mask head are optional
+REQUIRED = ("backbone", "rpn", "head_body", "rcnn_out")
 
 
 def combine_model(rpn_params: Dict[str, np.ndarray],
                   rcnn_params: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """The backbone and ``rpn/…`` leaves of ``rpn_params`` with the
-    ``head_body/…`` and ``rcnn_out/…`` leaves of ``rcnn_params``.  Raises
-    ``KeyError`` naming every group that neither supplies."""
+    """The ``backbone/…``, ``neck/…`` and ``rpn/…`` leaves of
+    ``rpn_params`` with the ``head_body/…``, ``rcnn_out/…`` and
+    ``mask_head/…`` leaves of ``rcnn_params``.  Raises ``KeyError`` naming
+    every required group that neither supplies."""
     out = {k: v for k, v in rpn_params.items()
            if k.split("/", 1)[0] in RPN_KEYS}
     out.update({k: v for k, v in rcnn_params.items()
                 if k.split("/", 1)[0] in RCNN_KEYS})
     have = {k.split("/", 1)[0] for k in out}
-    missing = [g for g in RPN_KEYS + RCNN_KEYS if g not in have]
+    missing = [g for g in REQUIRED if g not in have]
     if missing:
         raise KeyError(f"combine_model: missing submodules {missing}")
     return out

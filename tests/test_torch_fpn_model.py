@@ -24,12 +24,15 @@ them.
   level with fewer valid boxes than its cut, P6 with fewer anchors;
 * ``predict``, ``predict_with_feats``, ``masks_from_feats``,
   ``predict_masks`` and ``predict_rpn`` of the whole model;
-* ``build_model``'s dispatch; training and serving an FPN network raise by
-  name.  ``chip_smoke.py``'s phase 12 holds ``propose_fpn``'s kernels to
-  the plain NMS on the card.
+* ``build_model``'s dispatch; the training forward runs (its parity is
+  ``tests/test_torch_fpn_train.py``'s); serving an FPN network raises by
+  name, alternate training of a mask network with the JAX message.
+  ``chip_smoke.py``'s phase 12 holds ``propose_fpn``'s kernels to the
+  plain NMS on the card.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -342,34 +345,43 @@ def test_predict_paths_match_jax(model_pair):
     np.testing.assert_array_equal(rpn[2].numpy(), np.asarray(jrpn[2]))
 
 
-def test_build_model_dispatch_and_training_raises(tmp_path):
+def test_build_model_dispatch_training_runs_serving_refused(model_pair,
+                                                            tmp_path):
+    """``build_model`` gives every FPN preset an ``FPNFasterRCNN``; the
+    tiny mask model's training forward runs, with a mask loss given masks;
+    serving an FPN network is still refused by name, and alternate
+    training of a mask network raises the JAX package's message."""
     for net in ("resnet50_fpn", "resnet101_fpn", "resnet101_fpn_mask"):
         cfg = generate_config(net, "coco")
         assert cfg.tpu.ROI_SAMPLING_RATIO == 2
         m = build_model(cfg)
         assert isinstance(m, FPNFasterRCNN)
         assert m.has_mask == (net == "resnet101_fpn_mask")
-        for call in (m, m.rpn_train, m.rcnn_train):
-            with pytest.raises(NotImplementedError, match="A.10"):
-                call(None, None)
     assert not isinstance(build_model(generate_config("resnet50", "coco")),
                           FPNFasterRCNN)
 
-    from mx_rcnn_tpu_torch import train_alternate, train_end2end
+    m = model_pair["m"]
+    gt = torch.tensor([[[4.0, 6.0, 40.0, 30.0], [30.0, 20.0, 80.0, 60.0]]] * 2)
+    masks = torch.zeros((2, 2, 112, 112), dtype=torch.uint8)
+    masks[..., 20:90, 10:70] = 1
+    with torch.no_grad():
+        total, aux = m(t(model_pair["images"]), t(model_pair["info"]), gt,
+                       torch.tensor([[3, 7]] * 2), torch.ones(2, 2, dtype=bool),
+                       masks, generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(float(total)) and float(aux["mask_loss"]) > 0
+
+    from mx_rcnn_tpu_torch import train_alternate
+    from mx_rcnn_tpu_torch.models.fpn import NO_MASK_ALTERNATE
     from mx_rcnn_tpu_torch.serve import driver
     argv = ["--synthetic", "--device", "cpu", "--prefix",
             str(tmp_path / "e2e"), "--root_path", str(tmp_path / "data")]
     for net in ("resnet101_fpn", "resnet101_fpn_mask"):
-        with pytest.raises(NotImplementedError,
-                           match=f"train_end2end of an FPN network.*A.10"):
-            train_end2end.train_net(train_end2end.parse_args(
-                argv + ["--network", net]))
         args = driver.parse_args(["--synthetic", "--device", "cpu",
                                   "--network", net, "--unix-socket",
                                   str(tmp_path / "s.sock")])
         with pytest.raises(NotImplementedError, match="serving of an FPN"):
             driver.main(args)
-    with pytest.raises(NotImplementedError, match="train_alternate of an FPN"):
+    with pytest.raises(NotImplementedError, match=re.escape(NO_MASK_ALTERNATE)):
         train_alternate.alternate_train(train_alternate.parse_args(
-            argv + ["--network", "resnet101_fpn"]))
+            argv + ["--network", "resnet101_fpn_mask"]))
     assert not list(tmp_path.iterdir())

@@ -51,7 +51,8 @@ def test_imports_with_jax_and_the_jax_package_blocked():
                 "utils.load_data", "train.resilience", "train.checkpoint",
                 "train.optim", "train.train_step", "utils.convert_torch",
                 "models.fpn", "native", "eval.mask_rle", "ops.mask_paste",
-                "eval.coco_eval", "data.coco_dataset"):
+                "eval.coco_eval", "data.coco_dataset", "data.mask",
+                "ops.mask_target"):
         assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
