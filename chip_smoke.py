@@ -393,6 +393,22 @@ FPN_ALT_STEPS = 2
 FPN_TRAIN_ANCHORS = 268_569
 FPN_TRAIN_CANDIDATES = 4 * 2_400 + 819
 MASK_TARGET_BAND = 1e-5
+# phase 14, VGG-16 Faster R-CNN: the VOC devkit of write_devkit; the 600×1000
+# bucket pads to 608×1008 at stride 16 (IMAGE_STRIDE 0), 38 × 63 × 9 anchors.
+# The random head's class scores sit below 1/21 after a few steps (the
+# background takes the rest), so detections are kept from 0.001: the
+# served replies are held to offline records that are not empty
+VGG_FLAGS = ["--network", "vgg16", "--dataset", "PascalVOC",
+             "--cfg", "network__PIXEL_STDS=(127.0,127.0,127.0)",
+             "--cfg", "TEST__THRESH=0.001",
+             "--cfg", "tpu__ASSIGN_FUSED=True"]
+VGG_STEPS = 4
+VGG_ALT_STEPS = 2
+VGG_REQUESTS = 16
+VGG_ANCHORS = 21_546
+VGG_PARAMS = 137_078_239
+# the float32 R-CNN forward on the card against CPU copies (TF32 off)
+VGG_F32_RTOL = 1e-4
 
 
 def log(phase: str, **kw) -> None:
@@ -4149,12 +4165,16 @@ def fpn_train_kernels(P, tcfg, dev, anchors, gt_boxes, gt_valid, im_info,
     return rows
 
 
-def fpn_alternate(P, flags: list, paths: list, on: list, work: str,
-                  seed: int, sync) -> None:
-    """``train_alternate --network resnet101_fpn`` (see
-    :func:`fpn_train_slice`), its stage functions wrapped to count, time
-    and keep their weights; the combined model by group and through
-    ``test``; the mask network refused."""
+def run_alternate(P, argv: list, sync, steps: int, what: str):
+    """``train_alternate.alternate_train`` on ``argv``, its stage
+    functions wrapped to set the kernel counts to 0 just before each stage
+    and read them just after, to time it (model build included) and to
+    keep its weights.  Fails unless the stages run in order with ``steps``
+    steps each training stage, the assign pair once a step in stages 1 and
+    4, the NMS pair once a record in stages 2 and 5, and nothing in 3 and
+    6.  Returns ``(stages, final, wall_s)``: one dict a stage (``graph``,
+    ``wall_s``, ``launches``, and ``records`` or ``steps`` and
+    ``params``) and the combined parameters."""
     counters = {"nms_mask": P.nms_cuda.nms_mask,
                 "nms_sweep": P.nms_cuda.nms_sweep,
                 "assign_gtmax": P.assign_cuda.assign_gtmax,
@@ -4186,31 +4206,41 @@ def fpn_alternate(P, flags: list, paths: list, on: list, work: str,
     for n, f in saved:
         setattr(ta, n, wrap(f, {"train_rpn": "rpn", "test_rpn": "proposals",
                                 "train_rcnn": "rcnn"}[n]))
-    prefix = os.path.join(work, "fpn_alt_model", "alt")
-    common = flags + paths + on
     t0 = time.perf_counter()
     try:
-        final = ta.alternate_train(ta.parse_args(
-            ["--network", "resnet101_fpn"] + common + [
-                "--num-steps", str(FPN_ALT_STEPS), "--end_epoch", "1",
-                "--batch_images", str(BATCH), "--prefix", prefix,
-                "--seed", str(seed)]))
+        final = ta.alternate_train(ta.parse_args(argv))
     finally:
         for n, f in saved:
             setattr(ta, n, f)
-    alt_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     if [s_["graph"] for s_ in stages] != ["rpn", "proposals", "rcnn", "rpn",
                                           "proposals", "rcnn"]:
-        fail(f"fpn alternate: stages {[s_['graph'] for s_ in stages]}")
+        fail(f"{what}: stages {[s_['graph'] for s_ in stages]}")
     for i, s_ in enumerate(stages):
         la = s_["launches"]
-        want_assign = FPN_ALT_STEPS if s_["graph"] == "rpn" else 0
+        want_assign = steps if s_["graph"] == "rpn" else 0
         want_nms = s_.get("records", 0)
         if (la["assign_gtmax"], la["assign_rows"], la["nms_mask"],
                 la["nms_sweep"]) != (want_assign,) * 2 + (want_nms,) * 2:
-            fail(f"fpn alternate stage {i + 1} ({s_['graph']}): launches {la}")
-        if s_["graph"] != "proposals" and s_["steps"] != FPN_ALT_STEPS:
-            fail(f"fpn alternate stage {i + 1}: {s_['steps']} steps")
+            fail(f"{what} stage {i + 1} ({s_['graph']}): launches {la}")
+        if s_["graph"] != "proposals" and s_["steps"] != steps:
+            fail(f"{what} stage {i + 1}: {s_['steps']} steps")
+    return stages, final, wall
+
+
+def fpn_alternate(P, flags: list, paths: list, on: list, work: str,
+                  seed: int, sync) -> None:
+    """``train_alternate --network resnet101_fpn`` (see
+    :func:`fpn_train_slice`) through :func:`run_alternate`; the combined
+    model by group and through ``test``; the mask network refused."""
+    ta = P.train_alternate
+    prefix = os.path.join(work, "fpn_alt_model", "alt")
+    common = flags + paths + on
+    stages, final, alt_s = run_alternate(
+        P, ["--network", "resnet101_fpn"] + common + [
+            "--num-steps", str(FPN_ALT_STEPS), "--end_epoch", "1",
+            "--batch_images", str(BATCH), "--prefix", prefix,
+            "--seed", str(seed)], sync, FPN_ALT_STEPS, "fpn alternate")
     s4, s6 = stages[3]["params"], stages[5]["params"]
     neck = [k for k in final if k.startswith("neck/")]
     if not neck or any(k.startswith("mask_head/") for k in final):
@@ -4248,6 +4278,513 @@ def fpn_alternate(P, flags: list, paths: list, on: list, work: str,
         mask_refused=P.fpn_mod.NO_MASK_ALTERNATE)
 
 
+def torchvision_vgg16_state_dict(seed: int) -> dict:
+    """A torchvision ``vgg16``'s state_dict names and shapes, seeded
+    random values drawn so that the random network stays finite:
+    He-normal convolutions and fc6/fc7, biases 0.01, ``classifier.6``
+    N(0, 0.01²)."""
+    gen = torch.Generator().manual_seed(seed)
+    chans = [(64, 3), (64, 64), (128, 64), (128, 128), (256, 128),
+             (256, 256), (256, 256), (512, 256), (512, 512), (512, 512),
+             (512, 512), (512, 512), (512, 512)]
+    shapes = [(f"features.{i}", (o, c, 3, 3)) for i, (o, c) in zip(
+        (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28), chans)]
+    shapes += [("classifier.0", (4096, 25088)), ("classifier.3", (4096, 4096))]
+    sd = {}
+    for name, shape in shapes:
+        fan_in = int(np.prod(shape[1:]))
+        sd[name + ".weight"] = torch.randn(shape, generator=gen) * (
+            2.0 / fan_in) ** 0.5
+        sd[name + ".bias"] = torch.full((shape[0],), 0.01)
+    sd["classifier.6.weight"] = torch.randn(1000, 4096, generator=gen) * 0.01
+    sd["classifier.6.bias"] = torch.zeros(1000)
+    return sd
+
+
+def tied_windows(dtype, dev) -> tuple:
+    """(1, 1, 4, 6) positive values, every 2×2 window tied (its maximum two
+    or four times), on ``dev``, and the input gradient of a 2×2/2
+    max-pool that routes each window's cotangent (1 … 6) to its first
+    maximum in row-major order."""
+    x = torch.full((1, 1, 4, 6), 0.25)
+    ties = {(0, 0): [(0, 0), (1, 1)], (0, 1): [(0, 1), (0, 0)],
+            (0, 2): [(1, 0), (1, 1)], (1, 0): [(0, 0), (0, 1), (1, 0), (1, 1)],
+            (1, 1): [(0, 1), (1, 0)], (1, 2): [(1, 1), (0, 1)]}
+    want = torch.zeros_like(x)
+    for (i, j), cells in ties.items():
+        for di, dj in cells:
+            x[0, 0, 2 * i + di, 2 * j + dj] = 1.5 + i + j
+        di, dj = min(cells)
+        want[0, 0, 2 * i + di, 2 * j + dj] = 1 + 3 * i + j
+    return x.to(dev, dtype), want
+
+
+def vgg_slice(P, work: str, seed: int, device=None, flags=VGG_FLAGS) -> list:
+    """VGG-16 Faster R-CNN at full width (13 convs of 64–512 channels, a
+    512-channel RPN, ROIAlign 7×7 at stride 16 with one sample a bin,
+    fc6/fc7 of 4 096 with dropout 0.5 in training, 21 classes, the
+    600×1000 bucket padded to 608×1008, TRAIN 12000 → 2000, 256 anchors
+    and 128 RoIs an image, ``MAX_GT`` 100, bf16 compute on float32
+    parameters, ``ASSIGN_FUSED``, ``FLIP``) on :func:`write_devkit`'s
+    PNG devkit, every kernel count set to 0 just before each run and read
+    just after:
+
+    * a seeded torchvision-layout ``vgg16`` state_dict
+      (:func:`torchvision_vgg16_state_dict`) through
+      ``utils/convert_torch.py``: its keys are the model's ``backbone``
+      and ``head_body`` keys, no more, no fewer;
+    * ``python -m mx_rcnn_tpu_torch.train_end2end --network vgg16``'s
+      ``train_net`` from it, ``BATCH`` images a step, ``VGG_STEPS`` steps:
+      every loss finite, each kernel once a step, the ``conv1_*`` and
+      ``conv2_*`` leaves bitwise unchanged and conv3–conv5, fc6, fc7, the
+      RPN and the output layer moved; step walls, loader wait, peak
+      memory, the parameter count and the checkpoint's bytes;
+    * dropout on the card: ``rcnn_train`` in float32 (TF32 off) on the
+      first step's batch and the model's own test proposals, with one set
+      of injected uniforms and keep masks, against the same call on CPU
+      copies (labels identical, losses within ``VGG_F32_RTOL``); masks
+      drawn by the card's generator keep 50 ± 1% of 2 × 128 × 4 096;
+      ``predict`` twice on one batch bitwise equal;
+    * max-pool ties on the card: the backward of a 2×2/2 pool over tied
+      positive windows routes each window's gradient to its first
+      maximum, in float32 and bf16, as on the CPU;
+    * ``python -m mx_rcnn_tpu_torch.test`` on the checkpoint, serial, on
+      the host route (a warm-up run first) and ``--device-postprocess``:
+      mAP, the NMS pair once and twice a batch, the routes' records held
+      to each other (:func:`match_routes`), images/s and batch walls;
+    * the server (``serve.driver.build_engine``) in host-NMS and e2e mode,
+      ``VGG_REQUESTS`` requests each (:func:`serve_mode`);
+    * ``python -m mx_rcnn_tpu_torch.train_alternate --network vgg16``
+      from the converted weights, ``VGG_ALT_STEPS`` steps a stage
+      (:func:`run_alternate`): stages 4 and 6 keep every ``backbone``
+      leaf bitwise (``FIXED_PARAMS_SHARED``), the combined model takes
+      stage 4's backbone and RPN and stage 6's head and evaluates in
+      ``test``;
+    * on the first training step's own inputs: the assign pair at N = 21
+      546 (the step's gt, and G = 100 valid gt) and the NMS pair at B ·
+      12 000 → 2 000 and B · 6 000 → 300 on the step's RPN boxes, each
+      against its plain version (the kept rows also against
+      ``nms_padded``), timed, with its bound.
+
+    Returns the kernels' rows at VGG's shapes."""
+    tstart = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    root = os.path.join(work, "vgg")
+    devkit = write_devkit(root, seed)
+    paths = ["--dataset_path", devkit, "--root_path",
+             os.path.join(root, "data")]
+    on = [] if device is None else ["--device", str(device)]
+    counters = {"nms_mask": P.nms_cuda.nms_mask,
+                "nms_sweep": P.nms_cuda.nms_sweep,
+                "assign_gtmax": P.assign_cuda.assign_gtmax,
+                "assign_rows": P.assign_cuda.assign_rows}
+
+    def counted(fn):
+        sync()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, {k: f.launches for k, f in counters.items()}, \
+            time.perf_counter() - t0
+
+    # ---- torchvision weights through the converter ----
+    pth = os.path.join(root, "vgg16.pth")
+    torch.save(torchvision_vgg16_state_dict(seed), pth)
+    pretrained = os.path.join(root, "vgg16.npz")
+    P.convert_torch.convert_file(pth, "vgg16", pretrained)
+    converted = P.load_params_npz(pretrained)
+
+    # ---- end-to-end training through the driver ----
+    prefix = os.path.join(root, "model", "e2e")
+    targs = P.train_end2end.parse_args(flags + paths + on + [
+        "--image_set", f"2007_{TRAIN_SPLIT}", "--pretrained", pretrained,
+        "--batch_images", str(BATCH), "--num-steps", str(VGG_STEPS),
+        "--end_epoch", "1", "--frequent", "1", "--prefix", prefix,
+        "--seed", str(seed)])
+    tcfg = P.config_from_args(targs, train=True)
+    tr, net, tpu = tcfg.TRAIN, tcfg.network, tcfg.tpu
+    stride = max(net.IMAGE_STRIDE, net.RPN_FEAT_STRIDE)
+    bucket = P.image_mod.bucket_shape(tpu.SCALES[0], stride)
+    got = (net.NETWORK, tcfg.NUM_CLASSES, bucket, net.HOST_S2D,
+           net.RCNN_FEAT_STRIDE, tr.RPN_PRE_NMS_TOP_N, tr.RPN_POST_NMS_TOP_N,
+           tr.RPN_BATCH_SIZE, tr.BATCH_ROIS, tpu.MAX_GT,
+           tpu.ROI_SAMPLING_RATIO, tpu.ROI_MODE, tpu.COMPUTE_DTYPE,
+           tpu.ASSIGN_FUSED, tr.FLIP, net.FIXED_PARAMS)
+    if got != ("vgg16", 21, (608, 1008), False, 16, 12000, 2000, 256, 128,
+               100, 1, "avg", "bfloat16", True, True, ("conv1", "conv2")):
+        fail(f"vgg: config {got}")
+    captured, seen, walls, waits, states, batches = {}, [], [], [], [], []
+    last = [0.0]
+
+    def capture(name, fn):
+        def wrapped(*a, **k):
+            if name not in captured:
+                captured[name] = (_detached(a), k)
+            return fn(*a, **k)
+        return wrapped
+
+    def on_step(epoch, step, metrics):
+        now = time.perf_counter()  # frequent=1: fit has synchronised
+        seen.append(metrics)
+        walls.append(now - last[0])
+        last[0] = now
+
+    fit, batch_put = P.train_end2end.fit, P.trainer.batch_put
+
+    def fit_timed(cfg, model, params, loader, **k):
+        states.append({k_: np.array(v) for k_, v in params.items()})
+        last[0] = time.perf_counter()
+        st = fit(cfg, model, params, WaitTimed(loader, waits),
+                 batch_end_callback=on_step, **k)
+        states.append(st)
+        return st
+
+    def batch_put_kept(batch, cfg, device_):
+        out = batch_put(batch, cfg, device_)
+        if not batches:
+            batches.append({k: _detached(v) for k, v in out.items()})
+        return out
+
+    det = P.detector_mod
+    patched = ((P.train_end2end, "fit", fit_timed),
+               (P.trainer, "batch_put", batch_put_kept),
+               (det, "assign_targets", capture("assign", det.assign_targets)),
+               (det, "propose", capture("propose", det.propose)))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patched]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for m, n, f in patched:
+        setattr(m, n, f)
+    try:
+        _, train_launches, train_s = counted(
+            lambda: P.train_end2end.train_net(targs))
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    peak_bytes = torch.cuda.max_memory_allocated() if on_card else 0
+    before, st = states
+    model_keys = P.param_shapes(st.model)
+    backbone_fc = {k for k in model_keys
+                   if k.split("/")[0] in ("backbone", "head_body")}
+    if set(converted) != backbone_fc or any(
+            converted[k].shape != model_keys[k] for k in converted):
+        fail(f"vgg: the converted torchvision keys {sorted(converted)[:4]}… "
+             f"are not the model's backbone and head_body keys")
+    n_params = sum(int(np.prod(s_)) for s_ in model_keys.values())
+    if n_params != VGG_PARAMS:
+        fail(f"vgg: {n_params} parameters, expected {VGG_PARAMS}")
+    if len(seen) != VGG_STEPS or st.step != VGG_STEPS:
+        fail(f"vgg train: {len(seen)} steps of {VGG_STEPS}")
+    for name, count in train_launches.items():
+        if count != VGG_STEPS:
+            fail(f"vgg train: {name} launched {count} times in {VGG_STEPS} "
+                 f"steps")
+    if not all(np.isfinite(list(m.values())).all() for m in seen):
+        fail(f"vgg train: non-finite metrics {seen}")
+    after = P.export_jax_params(st.model)
+    n_frozen, n_moved = _moved_and_frozen(before, after, st.mask, "vgg train")
+    frozen = sorted(k for k, t in st.mask.items() if not t)
+    if frozen != sorted(k for k in model_keys if k.startswith(
+            ("backbone/conv1_", "backbone/conv2_"))):
+        fail(f"vgg train: frozen leaves {frozen}")
+    for group in ("backbone/conv3_", "backbone/conv4_", "backbone/conv5_",
+                  "head_body/fc6/", "head_body/fc7/", "rpn/", "rcnn_out/"):
+        if not any(k.startswith(group) and not np.array_equal(after[k],
+                                                              before[k])
+                   for k in after):
+            fail(f"vgg train: no {group} leaf moved")
+    del after, before
+    ckpt_bytes = os.path.getsize(P.epoch_path(prefix, 1))
+    log("vgg_train", network=net.NETWORK, classes=tcfg.NUM_CLASSES,
+        bucket=list(bucket), dtype=tpu.COMPUTE_DTYPE, batch=BATCH,
+        steps=len(seen), parameters=n_params, checkpoint_bytes=ckpt_bytes,
+        converted_keys=len(converted), train_wall_s=train_s,
+        launches=train_launches, frozen_leaves=n_frozen,
+        moved_leaves=n_moved, max_memory_allocated_bytes=peak_bytes,
+        step_wall_s=walls, step_wall_median_s=statistics.median(walls[1:]),
+        loader_wait_s=waits, loader_wait_share=sum(waits) / sum(walls),
+        metrics=seen)
+    del st
+    states.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- dropout and max-pool ties on the card ----
+    vgg_dropout_checks(P, tcfg, P.epoch_path(prefix, 1), batches[0], dev,
+                       seed)
+    batches.clear()
+
+    # ---- evaluation through the test driver ----
+    eargs = flags + paths + on + ["--image_set", f"2007_{EVAL_SPLIT}",
+                                  "--prefix", prefix, "--epoch", "1",
+                                  "--batch_images", str(BATCH),
+                                  "--eval-inflight", "0"]
+    modes = {"warm-up": [], "serial": [],
+             "serial+devpost": ["--device-postprocess"]}
+    n_batches = -(-len(EVAL_SIZES) // BATCH)
+    stats, boxes, eval_launches = {}, {}, {}
+    for mode, extra in modes.items():
+        cache = os.path.join(root, f"dets-{mode}.pkl")
+        out, eval_launches[mode], _ = counted(lambda: P.test_driver.test_rcnn(
+            P.test_driver.parse_args(eargs + extra + ["--dets_cache",
+                                                      cache])))
+        want = n_batches * (2 if "devpost" in mode else 1)
+        for name in ("nms_mask", "nms_sweep"):
+            if eval_launches[mode][name] != want:
+                fail(f"vgg eval [{mode}]: {name} launched "
+                     f"{eval_launches[mode][name]} times in {n_batches} "
+                     f"batches, expected {want}")
+        if not (np.isfinite(out["mAP"]) and 0.0 <= out["mAP"] <= 1.0):
+            fail(f"vgg eval [{mode}]: mAP {out['mAP']}")
+        with open(cache, "rb") as f:
+            boxes[mode] = pickle.load(f)
+        stats[mode] = out
+    ecfg = P.config_from_args(P.test_driver.parse_args(eargs), train=False)
+    matched = match_routes(boxes["serial"], boxes["serial+devpost"],
+                           ecfg.TEST.MAX_PER_IMAGE)
+    log("vgg_eval", images=len(EVAL_SIZES), batch=BATCH,
+        launches=eval_launches, device_matched=matched,
+        mAP={m: s_["mAP"] for m, s_ in stats.items()},
+        imgs_per_sec={m: s_["eval_pipeline"]["imgs_per_sec"]
+                      for m, s_ in stats.items()},
+        batch_wall_s={m: s_["eval_pipeline"]["wall_s"] / n_batches
+                      for m, s_ in stats.items()},
+        pipeline={m: s_["eval_pipeline"] for m, s_ in stats.items()})
+
+    # ---- serving ----
+    P.telemetry.configure(root, stream=False)
+    sargs = P.serve_driver.parse_args(flags + on + [
+        "--prefix", prefix, "--epoch", "1", "--serve-batch", str(BATCH),
+        "--max-delay-ms", "10", "--unix-socket", "unused"])
+    scfg = P.config_from_args(sargs, train=False)
+    rng = np.random.RandomState(seed + 2)
+    images = [boxes_image(rng, h, w)[0] for h, w in SERVE_SIZES[:4]]
+    served = {}
+    predictor, engine = P.serve_driver.build_engine(sargs, scfg)
+    try:
+        served["host_nms"] = serve_mode(P, predictor, engine, scfg,
+                                        os.path.join(root, "host.sock"),
+                                        images, e2e=False,
+                                        requests=VGG_REQUESTS)
+    finally:
+        engine.stop()
+    engine = P.serve.ServeEngine(predictor, scfg, dataclasses.replace(
+        engine.opts, serve_e2e=True)).start()
+    try:
+        served["e2e"] = serve_mode(P, predictor, engine, scfg,
+                                   os.path.join(root, "e2e.sock"), images,
+                                   e2e=True, requests=VGG_REQUESTS)
+    finally:
+        engine.stop()
+    P.telemetry.shutdown()
+    del predictor, engine
+    log("vgg_serve", sizes=[list(im.shape[:2]) for im in images],
+        batch=BATCH, modes=served)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- alternate training ----
+    alt_prefix = os.path.join(root, "alt_model", "alt")
+    common = flags + paths + on + ["--image_set", f"2007_{TRAIN_SPLIT}"]
+    stages, final, alt_s = run_alternate(
+        P, common + ["--pretrained", pretrained, "--num-steps",
+                     str(VGG_ALT_STEPS), "--end_epoch", "1",
+                     "--batch_images", str(BATCH), "--prefix", alt_prefix,
+                     "--seed", str(seed)], sync, VGG_ALT_STEPS,
+        "vgg alternate")
+    s3, s4, s6 = (stages[i]["params"] for i in (2, 3, 5))
+    for k, v in final.items():
+        group = k.split("/")[0]
+        if not np.array_equal(v, (s6 if group in ("head_body", "rcnn_out")
+                                  else s4)[k]):
+            fail(f"vgg alternate: combined {k} is not its stage's")
+        if group == "backbone" and not (np.array_equal(s4[k], s3[k])
+                                        and np.array_equal(s6[k], s4[k])):
+            fail(f"vgg alternate: stage 4 or 6 moved the frozen {k}")
+    stages_log = [{k: v for k, v in s_.items() if k != "params"}
+                  for s_ in stages]
+    stages.clear()
+    del s3, s4, s6, final
+    out, alt_eval_launches, _ = counted(lambda: P.test_driver.test_rcnn(
+        P.test_driver.parse_args(flags + paths + on + [
+            "--image_set", f"2007_{EVAL_SPLIT}", "--prefix", alt_prefix,
+            "--epoch", "1", "--batch_images", str(BATCH),
+            "--eval-inflight", "0"])))
+    if not (np.isfinite(out["mAP"]) and 0.0 <= out["mAP"] <= 1.0):
+        fail(f"vgg alternate eval: mAP {out['mAP']}")
+    log("vgg_alternate", wall_s=alt_s, stages=stages_log,
+        stage_wall_s=[s_["wall_s"] for s_ in stages_log],
+        mAP=out["mAP"], eval_launches=alt_eval_launches)
+
+    # ---- the kernels on the first step's own inputs ----
+    if on_card:
+        torch.cuda.empty_cache()
+    rows = vgg_kernels(P, tcfg, ecfg, captured, train_launches,
+                       eval_launches["serial"])
+    log("vgg_total", seconds=time.perf_counter() - tstart)
+    return rows
+
+
+def vgg_dropout_checks(P, tcfg, ckpt: str, batch: dict, dev, seed: int):
+    """Dropout on the card (see :func:`vgg_slice`) and the max-pool ties.
+    ``batch`` is the first training step's, on ``dev``."""
+    cfg32 = tcfg.replace(tpu=dataclasses.replace(tcfg.tpu,
+                                                 COMPUTE_DTYPE="float32"))
+    params = P.normalize_for_train(P.load_params_npz(ckpt), cfg32)
+    models = []  # the card's model, then the CPU copy
+    for where in (dev, torch.device("cpu")):
+        m = P.build_model(cfg32)
+        P.load_jax_params(m, params)
+        models.append(m.to(where))
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        rois, _, roi_valid = models[0].predict_rpn(batch["images"],
+                                                   batch["im_info"])
+    gen = torch.Generator().manual_seed(seed)
+    n = rois.shape[1] + tcfg.tpu.MAX_GT
+    shape = (BATCH, tcfg.TRAIN.BATCH_ROIS, 4096)
+    draws = {"rcnn": P.uniform_draws((BATCH, n), "cpu", gen),
+             "dropout": tuple(P.dropout_keep(shape, "cpu", gen)
+                              for _ in range(2))}
+    args = [batch[k] for k in ("images", "im_info")] + [rois, roi_valid] + \
+        [batch[k] for k in ("gt_boxes", "gt_classes", "gt_valid")]
+    outs = []
+    for where, m in zip((dev, torch.device("cpu")), models):
+        with torch.no_grad():
+            total, aux = m.rcnn_train(
+                *[torch.as_tensor(a).to(where) for a in args],
+                draws={k: tuple(t.to(where) for t in v)
+                       for k, v in draws.items()})
+        outs.append((aux["rcnn_label"].cpu(),
+                     [float(aux[k]) for k in ("rcnn_cls_loss",
+                                              "rcnn_bbox_loss")]
+                     + [float(total)]))
+    card, host = outs
+    if not torch.equal(card[0], host[0]):
+        fail("vgg dropout: rcnn_train's labels differ between the card and "
+             "the CPU")
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(card[1],
+                                                               host[1]))
+    if rel > VGG_F32_RTOL:
+        fail(f"vgg dropout: rcnn_train's losses differ between the card and "
+             f"the CPU by {rel} ({card[1]} vs {host[1]})")
+    model = models[0]
+    del models
+    kept = float(P.dropout_keep(
+        (2,) + shape[1:], dev, torch.Generator(device=dev).manual_seed(seed))
+        .float().mean())
+    if abs(kept - 0.5) > 0.01:
+        fail(f"vgg dropout: drawn masks keep {kept} of the entries")
+    with torch.no_grad():
+        p1 = model.predict(batch["images"], batch["im_info"])
+        p2 = model.predict(batch["images"], batch["im_info"])
+    if not all(torch.equal(a, b) for a, b in zip(p1, p2)):
+        fail("vgg dropout: predict twice on one batch differs")
+    del model, p1, p2
+
+    ties = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        grads = []
+        for where in (dev, torch.device("cpu")):
+            x, want = tied_windows(dtype, where)
+            x = x.contiguous(memory_format=torch.channels_last)
+            x.requires_grad_()
+            y = torch.nn.functional.max_pool2d(x, 2, 2)
+            (y.float() * torch.arange(1, 7, dtype=torch.float32, device=where)
+             .reshape(1, 1, 2, 3)).sum().backward()
+            grads.append(x.grad.float().cpu())
+        if not (torch.equal(grads[0], want) and torch.equal(grads[1], want)):
+            fail(f"vgg max-pool ties ({dtype}): the gradient does not go to "
+                 f"each window's first maximum on the "
+                 f"{'card' if not torch.equal(grads[0], want) else 'CPU'}")
+        ties[str(dtype)] = True
+    log("vgg_dropout", rcnn_train_f32_rel=rel, rtol=VGG_F32_RTOL,
+        labels_identical=True, rois=int(rois.shape[1]),
+        fg_labels=int((card[0] > 0).sum()), losses_card=card[1],
+        losses_cpu=host[1], drawn_keep_fraction=kept,
+        predict_bitwise=True, max_pool_ties_first_max=ties)
+
+
+def vgg_kernels(P, tcfg, ecfg, captured, train_launches, eval_launches
+                ) -> list:
+    """The assign pair and the NMS pair on the first VGG training step's
+    own inputs (see :func:`vgg_slice`).  Returns their rows."""
+    tr, te = tcfg.TRAIN, ecfg.TEST
+    (_, anchors, gt_boxes, gt_valid, im_info, *_), _ = captured["assign"]
+    dev = anchors.device
+    n = int(anchors.shape[0])
+    if n != VGG_ANCHORS:
+        fail(f"vgg: {n} anchors, expected {VGG_ANCHORS}")
+    ab = tr.RPN_ALLOWED_BORDER
+    im_h, im_w = im_info[:, 0:1], im_info[:, 1:2]
+    inside = ((anchors[None, :, 0] >= -ab) & (anchors[None, :, 1] >= -ab)
+              & (anchors[None, :, 2] < im_w + ab)
+              & (anchors[None, :, 3] < im_h + ab))
+    rows = time_assign(P.assign_cuda, anchors, gt_boxes, gt_valid, inside)
+    g = int(gt_boxes.shape[1])
+    for k in rows:
+        k.update(launches=train_launches[k["name"]],
+                 shape=f"vgg train: N={n}, G={g}, the batch's gt "
+                       f"({[int(x) for x in gt_valid.sum(1)]} valid)")
+    an = anchors.cpu().numpy()
+    hw = [int(x) for x in im_info[0, :2].tolist()]
+    per = [assign_case(np.random.RandomState(80 + b), an, hw, 100, 100,
+                       (40.0, 360.0)) for b in range(int(gt_boxes.shape[0]))]
+    g100 = time_assign(P.assign_cuda, anchors, *(
+        torch.from_numpy(np.stack([p[i] for p in per])).to(dev)
+        for i in range(3)))
+    for k in g100:
+        k.update(launches=train_launches[k["name"]],
+                 shape=f"vgg train: N={n}, G=100")
+    log("times_vgg_assign", shape={"B": int(gt_boxes.shape[0]),
+                                   "anchors": n, "gt": g},
+        kernels=rows, g100={"gt": 100, "kernels": g100})
+    rows += g100
+
+    (scores, deltas, p_anchors, info), _ = captured["propose"]
+    for what, pre, post, thresh, launches in (
+            ("train", tr.RPN_PRE_NMS_TOP_N, tr.RPN_POST_NMS_TOP_N,
+             tr.RPN_NMS_THRESH, train_launches),
+            ("test", te.RPN_PRE_NMS_TOP_N, te.RPN_POST_NMS_TOP_N,
+             te.RPN_NMS_THRESH, eval_launches)):
+        boxes, sc, valid = P.proposal_candidates(
+            scores, deltas, p_anchors, info, pre_nms_top_n=pre,
+            min_size=tr.RPN_MIN_SIZE if what == "train" else te.RPN_MIN_SIZE)
+        b, m = int(boxes.shape[0]), int(boxes.shape[1])
+        if m != pre:
+            fail(f"vgg {what} proposal: {m} candidates, expected {pre}")
+        ki, km = P.nms_cuda.nms_bitmask(boxes, valid, post, thresh)
+        for i in range(b):
+            ri, rm = P.nms_padded(boxes[i], sc[i], post, thresh,
+                                  valid=valid[i])
+            if not torch.equal(ki[i][km[i]], ri[rm]):
+                fail(f"vgg {what} proposal: kernel and plain NMS keep "
+                     f"different rows in image {i}")
+        nms_rows = time_kernels(P.nms_cuda, boxes, valid, post, thresh)
+        for k in nms_rows:
+            k.update(launches=launches[k["name"]],
+                     shape=f"vgg {what} proposal: B={b}, n={m} -> {post}")
+        log(f"times_vgg_{what}_proposal", shape={"B": b, "n": m,
+                                                 "max_out": post},
+            kept=[int(x) for x in km.sum(1)], identical=True,
+            kernels=nms_rows)
+        rows += nms_rows
+    for k in rows:
+        if k["max_abs_err"] != 0.0:
+            fail(f"{k['name']} disagrees with its plain version at VGG's "
+                 f"shape {k['shape']} (max abs err {k['max_abs_err']})")
+        k.update(route="cuda", source=SOURCES[k["name"]],
+                 replaces=REPLACES[k["name"]])
+    return rows
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -4271,7 +4808,9 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.eval.coco_eval import COCOEval
     from mx_rcnn_tpu_torch.kernels import _build, assign_cuda, nms_cuda
     from mx_rcnn_tpu_torch.data import mask as mask_mod
+    from mx_rcnn_tpu_torch.models import detector as detector_mod
     from mx_rcnn_tpu_torch.models import fpn as fpn_mod
+    from mx_rcnn_tpu_torch.models.backbones import dropout_keep
     from mx_rcnn_tpu_torch.models.detector import build_model
     from mx_rcnn_tpu_torch.models.losses import fg_prob
     from mx_rcnn_tpu_torch.ops import mask_target
@@ -4301,6 +4840,7 @@ def import_port() -> types.SimpleNamespace:
                                                     denormalize_for_save,
                                                     epoch_path,
                                                     load_params_npz,
+                                                    normalize_for_train,
                                                     save_params_npz)
     from mx_rcnn_tpu_torch.train.optim import export_momentum
     from mx_rcnn_tpu_torch.train.resilience import (NonFiniteLossError,
@@ -4528,12 +5068,17 @@ def main() -> int:
         # ---- 13. FPN and Mask R-CNN training at full width ----------------
         torch.cuda.empty_cache()
         fpn_train = fpn_train_slice(P, work, args.seed)
+
+        # ---- 14. VGG-16 Faster R-CNN at full width ------------------------
+        torch.cuda.empty_cache()
+        vgg = vgg_slice(P, work, args.seed)
     log("total", seconds=time.perf_counter() - t_start)
 
-    # ---- 14. the kernels line and the result --------------------------------
+    # ---- 15. the kernels line and the result --------------------------------
     # the main path's rows (the training shape), then the COCO shapes', then
-    # FPN's joint proposal, then FPN training's anchors and joint proposal
-    kernels += coco + fpn + fpn_train
+    # FPN's joint proposal, then FPN training's anchors and joint proposal,
+    # then VGG's anchors and proposals
+    kernels += coco + fpn + fpn_train + vgg
     order = ("name", "shape", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

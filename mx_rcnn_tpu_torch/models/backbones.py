@@ -1,7 +1,7 @@
-"""ResNet backbone with frozen BN (counterpart of
+"""ResNet backbone with frozen BN, and VGG-16 (counterpart of
 ``mx_rcnn_tpu/models/backbones.py``: ``StemConvS2D``, ``FrozenBN``,
 ``ScaledConv``, ``Bottleneck``, ``ResNetStage``, ``ResNetConv`` with
-``all_stages``, ``ResNetStage5``).
+``all_stages``, ``ResNetStage5``, ``VGGConv``, ``VGGFC``).
 
 Modules take and return NHWC at their boundary, like the JAX package; the
 convolutions run on the NCHW view of the same memory (``channels_last``),
@@ -14,9 +14,19 @@ float32, then cast to the compute dtype for the convolution.  Weight decay
 and the elementwise gradient clip therefore act on the same leaf as in the
 JAX package.  ``gamma``/``beta`` are frozen by every ResNet preset; a
 config that trains them is refused (``train/optim.py``).
+
+VGG-16 has no BN: its 13 convs are plain ``nn.Conv2d`` (3×3, pad 1, bias)
+named ``conv{block}_{i}`` and its fc6/fc7 plain ``nn.Linear``, float32
+parameters cast to the compute dtype on every call, as flax's ``dtype=``
+does.  Its max-pools are ``F.max_pool2d`` 2×2/2 (VALID: an odd side
+drops its last row or column); on a tied window the backward sends the
+gradient to the first maximum in row-major order, as XLA's
+select-and-scatter does for flax's ``nn.max_pool``.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -198,3 +208,76 @@ class ResNetStage5(nn.Module):
         x = nhwc_to_nchw(x.reshape((-1,) + tuple(x.shape[-3:])).to(self.dtype))
         x = self.stage4(x)
         return x.mean(dim=(-2, -1)).reshape(tuple(lead) + (x.shape[1],))
+
+
+VGG_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+# flax's Dropout(0.5): kept values are divided by the keep probability
+DROPOUT_KEEP = 0.5
+
+
+class VGGConv(nn.Module):
+    """The VGG-16 conv body: NHWC (B, H, W, 3) → stride-16, 512-channel
+    NHWC features.  Five blocks of 3×3 convs + relu; a 2×2/2 max-pool
+    after blocks 1–4, none after block 5."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        cin = 3
+        for b, (n, f) in enumerate(VGG_BLOCKS, start=1):
+            for i in range(1, n + 1):
+                self.add_module(f"conv{b}_{i}",
+                                nn.Conv2d(cin, f, 3, padding=1))
+                cin = f
+
+    def forward(self, x):
+        x = nhwc_to_nchw(x.to(self.dtype))
+        for b, (n, _) in enumerate(VGG_BLOCKS, start=1):
+            for i in range(1, n + 1):
+                conv = getattr(self, f"conv{b}_{i}")
+                x = F.relu(F.conv2d(x, conv.weight.to(self.dtype),
+                                    conv.bias.to(self.dtype), padding=1))
+            if b < len(VGG_BLOCKS):
+                x = F.max_pool2d(x, 2, 2)
+        return nchw_to_nhwc(x)
+
+
+def dropout_keep(shape, device, generator: Optional[torch.Generator]
+                 ) -> torch.Tensor:
+    """A bool keep mask of ``shape``, each entry kept with probability
+    ``DROPOUT_KEEP`` (``uniform < p``, as ``jax.random.bernoulli``)."""
+    return torch.rand(shape, generator=generator, device=device) < DROPOUT_KEEP
+
+
+class VGGFC(nn.Module):
+    """VGG fc6/fc7 as the R-CNN head body: (…, 7, 7, 512) pooled RoI
+    features flattened in (h, w, c) order → fc6 → relu → dropout → fc7 →
+    relu → dropout → (…, 4096)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc6 = nn.Linear(7 * 7 * 512, 4096)
+        self.fc7 = nn.Linear(4096, 4096)
+
+    def forward(self, x, *, deterministic: bool = True,
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        """``deterministic`` turns dropout off (inference).  Otherwise
+        ``keep`` is the ``(keep6, keep7)`` pair of bool masks of fc6's and
+        fc7's output shape; absent, it is drawn from ``generator``
+        (:func:`dropout_keep`).  Kept values are divided by
+        ``DROPOUT_KEEP``, exact in every dtype."""
+        x = x.reshape(tuple(x.shape[:-3]) + (-1,)).to(self.dtype)
+        for j, fc in enumerate((self.fc6, self.fc7)):
+            x = F.relu(F.linear(x, fc.weight.to(self.dtype),
+                                fc.bias.to(self.dtype)))
+            if not deterministic:
+                k = (keep[j] if keep is not None
+                     else dropout_keep(x.shape, x.device, generator))
+                if k.shape != x.shape:
+                    raise ValueError(f"dropout keep mask of fc{6 + j}: shape "
+                                     f"{tuple(k.shape)}, expected "
+                                     f"{tuple(x.shape)}")
+                x = torch.where(k, x / DROPOUT_KEEP, torch.zeros_like(x))
+        return x

@@ -2,21 +2,28 @@
 ``FasterRCNN.__call__``/``predict``/``predict_rpn``, ``_rcnn_head``,
 ``_anchors_for``, ``build_model``).
 
-Inference: ResNet conv body → RPN head → ``fg_prob`` → ``propose`` (the
-CUDA NMS kernels) → ROIAlign 14×14 → stage 5 → ``cls_score``/
-``bbox_pred`` → softmax.
+Inference: conv body (ResNet stages 1–4, or VGG-16's 13 convs) → RPN head
+→ ``fg_prob`` → ``propose`` (the CUDA NMS kernels) → ROIAlign (14×14 for
+ResNet, 7×7 for VGG) → head body (ResNet stage 5, or VGG's fc6/fc7) →
+``cls_score``/``bbox_pred`` → softmax.
 
-Training (``forward``, the reference's ``get_resnet_train``): the same
-body and RPN → batched ``assign_anchor`` (the fused assign kernels when
-``cfg.tpu.ASSIGN_FUSED``) → ``propose`` on the detached RPN outputs with
-the TRAIN settings → gt appended → ``sample_rois`` → the R-CNN head on the
-sampled RoIs → the four losses.  Labels, targets and proposals carry no
-gradient; everything else is autograd.  ``rpn_train`` and ``rcnn_train``
-are the alternate-training graphs: the RPN half with its losses, and the
-R-CNN half on given proposals.  Classic ResNet only; ``build_model`` hands
-FPN and Mask R-CNN configs to ``models/fpn.py``, which shares the training
-pieces here (``assign_targets``, ``sample_targets``, ``rpn_loss_terms``,
-``rcnn_loss_terms``); VGG waits for a later slice.
+Training (``forward``, the reference's ``get_resnet_train`` /
+``get_vgg_train``): the same body and RPN → batched ``assign_anchor`` (the
+fused assign kernels when ``cfg.tpu.ASSIGN_FUSED``) → ``propose`` on the
+detached RPN outputs with the TRAIN settings → gt appended →
+``sample_rois`` → the R-CNN head on the sampled RoIs, VGG's with dropout
+on → the four losses.  Labels, targets and proposals carry no gradient;
+everything else is autograd.  ``rpn_train`` and ``rcnn_train`` are the
+alternate-training graphs: the RPN half with its losses, and the R-CNN
+half on given proposals.  ``build_model`` hands FPN and Mask R-CNN configs
+to ``models/fpn.py``, which shares the training pieces here
+(``assign_targets``, ``sample_targets``, ``rpn_loss_terms``,
+``rcnn_loss_terms``).
+
+Random draws: ``draws`` may carry the step's uniforms and dropout masks
+(``{"rpn": (fg, bg), "rcnn": (fg, bg), "dropout": (keep6, keep7)}``);
+each one absent is drawn from ``generator`` (``jax.random`` streams differ
+from torch's, so parity with the JAX package feeds its draws in).
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import torch
 import torch.nn as nn
 
 from mx_rcnn_tpu_torch.config import Config
-from mx_rcnn_tpu_torch.models.backbones import ResNetConv, ResNetStage5
+from mx_rcnn_tpu_torch.models.backbones import (VGGFC, ResNetConv,
+                                               ResNetStage5, VGGConv)
 from mx_rcnn_tpu_torch.models.heads import RCNNOutput, RPNHead
 from mx_rcnn_tpu_torch.models import losses as L
 from mx_rcnn_tpu_torch.models.losses import fg_prob
@@ -111,21 +119,28 @@ def rcnn_loss_terms(cfg: Config, cls_logits, bbox_out, tgt, b: int) -> dict:
 
 
 class FasterRCNN(nn.Module):
-    """Single-level Faster R-CNN with a ResNet-50/101/152 trunk."""
+    """Single-level Faster R-CNN with a ResNet-50/101/152 or VGG-16
+    trunk."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         net = cfg.network
-        if not net.NETWORK.startswith("resnet"):
-            raise NotImplementedError(
-                f"backbone {net.NETWORK!r} is not ported yet; see ROADMAP.md")
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
-        self.backbone = ResNetConv(net.NETWORK, self.dtype)
-        self.head_body = ResNetStage5(net.NETWORK, self.dtype)
-        self.rpn = RPNHead(1024, net.NUM_ANCHORS, 512, self.dtype)
-        self.rcnn_out = RCNNOutput(2048, cfg.NUM_CLASSES, self.dtype)
-        self._pooled = 14  # ROIAlign 14×14 → stage 5 stride 2 → 7×7
+        if net.NETWORK.startswith("resnet"):
+            self.backbone = ResNetConv(net.NETWORK, self.dtype)
+            self.head_body = ResNetStage5(net.NETWORK, self.dtype)
+            feat_ch, emb = 1024, 2048
+            self._pooled = 14  # ROIAlign 14×14 → stage 5 stride 2 → 7×7
+        elif net.NETWORK == "vgg16":
+            self.backbone = VGGConv(self.dtype)
+            self.head_body = VGGFC(self.dtype)
+            feat_ch, emb = 512, 4096
+            self._pooled = 7
+        else:
+            raise ValueError(f"unknown backbone {net.NETWORK}")
+        self.rpn = RPNHead(feat_ch, net.NUM_ANCHORS, 512, self.dtype)
+        self.rcnn_out = RCNNOutput(emb, cfg.NUM_CLASSES, self.dtype)
         self._anchors: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
 
     def _anchors_for(self, feat_h: int, feat_w: int,
@@ -152,19 +167,30 @@ class FasterRCNN(nn.Module):
                        nms_thresh=te.RPN_NMS_THRESH, min_size=te.RPN_MIN_SIZE,
                        use_kernel=te.CXX_PROPOSAL)
 
-    def _rcnn_head(self, feat, rois):
+    def _rcnn_head(self, feat, rois, deterministic: bool = True, keep=None,
+                   generator: Optional[torch.Generator] = None):
         """feat (B, Hf, Wf, C); rois (B, R, 4) image frame → (B, R, K),
-        (B, R, 4K) float32."""
+        (B, R, 4K) float32.  A VGG head body takes ``deterministic``
+        (False in training: dropout on), ``keep`` (the ``(keep6, keep7)``
+        masks, or ``None`` to draw them) and ``generator``."""
         pooled = roi_align(feat.to(self.dtype), rois,
                            spatial_scale=1.0 / self.cfg.network.RCNN_FEAT_STRIDE,
                            pooled_size=self._pooled,
                            sampling_ratio=self.cfg.tpu.ROI_SAMPLING_RATIO,
                            mode=self.cfg.tpu.ROI_MODE)
-        return self.rcnn_out(self.head_body(pooled))
+        if isinstance(self.head_body, VGGFC):
+            emb = self.head_body(pooled, deterministic=deterministic,
+                                 keep=keep, generator=generator)
+        else:
+            emb = self.head_body(pooled)
+        return self.rcnn_out(emb)
 
-    def _rcnn_losses(self, feat, tgt, b: int) -> dict:
-        """The R-CNN head on the sampled RoIs and its two losses."""
-        cls_logits, bbox_out = self._rcnn_head(feat, tgt["rois"])
+    def _rcnn_losses(self, feat, tgt, b: int, draws: dict, generator) -> dict:
+        """The R-CNN head on the sampled RoIs, in training (dropout on),
+        and its two losses."""
+        cls_logits, bbox_out = self._rcnn_head(
+            feat, tgt["rois"], deterministic=False, keep=draws.get("dropout"),
+            generator=generator)
         return rcnn_loss_terms(self.cfg, cls_logits, bbox_out, tgt, b)
 
     def forward(self, images, im_info, gt_boxes, gt_classes, gt_valid, *,
@@ -177,9 +203,11 @@ class FasterRCNN(nn.Module):
           im_info: (B, 3) float32 (effective h, effective w, scale).
           gt_boxes: (B, G, 4) float32; gt_classes: (B, G) int;
             gt_valid: (B, G) bool.
-          draws: optional ``{"rpn": (fg, bg), "rcnn": (fg, bg)}`` uniforms
-            for ``assign_anchor`` ((B, N) each) and ``sample_rois`` ((B,
-            post_nms + G) each); drawn from ``generator`` when absent.
+          draws: optional ``{"rpn": (fg, bg), "rcnn": (fg, bg), "dropout":
+            (keep6, keep7)}``: uniforms for ``assign_anchor`` ((B, N) each)
+            and ``sample_rois`` ((B, post_nms + G) each), and a VGG head's
+            bool keep masks ((B, BATCH_ROIS, 4096) each); each drawn from
+            ``generator`` when absent.
 
         Returns ``(total_loss, aux)`` with the JAX package's keys: the four
         losses and the raw pieces of the six reference metrics.
@@ -205,7 +233,7 @@ class FasterRCNN(nn.Module):
         tgt = sample_targets(self.cfg, rois, roi_valid, gt_boxes, gt_classes,
                              gt_valid, draws.get("rcnn"), generator)
         aux = {**rpn_loss_terms(self.cfg, rpn_cls, rpn_bbox, assign, b),
-               **self._rcnn_losses(feat, tgt, b)}
+               **self._rcnn_losses(feat, tgt, b, draws, generator)}
         total = (aux["rpn_cls_loss"] + aux["rpn_bbox_loss"]
                  + aux["rcnn_cls_loss"] + aux["rcnn_bbox_loss"])
         return total, aux
@@ -233,16 +261,18 @@ class FasterRCNN(nn.Module):
         """The Fast R-CNN training graph on given proposals (alternate
         training, stages 3 and 6): body → the gt appended to ``rois`` (B, P,
         4, scaled frame) → ``sample_rois`` → the R-CNN head → its two
-        losses.  ``draws``: optional ``{"rcnn": (fg, bg)}``, each (B, P +
-        G).  Returns ``(total_loss, aux)`` with the R-CNN keys of
-        :meth:`forward`."""
+        losses.  ``draws``: optional ``{"rcnn": (fg, bg), "dropout":
+        (keep6, keep7)}``, the uniforms (B, P + G) each, the keep masks as
+        in :meth:`forward`.  Returns ``(total_loss, aux)`` with the R-CNN
+        keys of :meth:`forward`."""
         del im_info  # the RoIs arrive in the scaled frame
         b = images.shape[0]
+        draws = draws or {}
         feat = self.backbone(images)
         tgt = sample_targets(self.cfg, rois.to(torch.float32), roi_valid,
                              gt_boxes, gt_classes, gt_valid,
-                             (draws or {}).get("rcnn"), generator)
-        aux = self._rcnn_losses(feat, tgt, b)
+                             draws.get("rcnn"), generator)
+        aux = self._rcnn_losses(feat, tgt, b, draws, generator)
         return aux["rcnn_cls_loss"] + aux["rcnn_bbox_loss"], aux
 
     def predict(self, images, im_info):

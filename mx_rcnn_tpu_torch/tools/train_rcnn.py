@@ -50,7 +50,7 @@ def train_rcnn(args, cfg=None, params=None, roidb=None,
         if source == "selective_search":
             raise NotImplementedError(
                 "--proposals selective_search: selective-search proposals "
-                "are not ported (ROADMAP.md A.5); pass a test_rpn .pkl")
+                "are not ported (ROADMAP.md A.8); pass a test_rpn .pkl")
         if source:
             base = load_proposals(imdb.gt_roidb(), source)
         roidb = get_train_roidb(imdb, cfg, roidb=base)

@@ -31,7 +31,7 @@ and ``--nan-policy rollback`` are refused; ``--nan-policy halt`` and
 model is saved de-normalised as the port's flat ``{prefix}-{end_epoch:04d}
 .npz``, which ``python -m mx_rcnn_tpu_torch.test --epoch end_epoch`` loads;
 the JAX driver saves it through orbax's ``CheckpointManager``, which is not
-ported (ROADMAP.md A.5.3).  Mask configs raise before any stage runs,
+ported (ROADMAP.md A.3).  Mask configs raise before any stage runs,
 with the JAX driver's message: the alternate graphs have no mask targets.
 """
 

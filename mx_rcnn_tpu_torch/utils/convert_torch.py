@@ -19,8 +19,8 @@ ResNet:  conv1→backbone/conv1, bn1→backbone/bn1,
          bnN/downsample.1→{gamma,beta,mean,var}.
 VGG16:   features.{idx}→backbone/conv{b}_{i} (the 13 convs in order),
          classifier.{0,3}→head_body/{fc6,fc7} (fc weights transposed, fc6's
-         input axis in HWC order).  The port has no VGG model yet
-         (ROADMAP.md A.9); the map is here for it.
+         input axis in HWC order), the keys of the port's
+         ``models/backbones.py:VGGConv`` and ``VGGFC``.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 JAX package, no file of it names ``jax``, ``flax``, ``orbax``, ``cv2``,
 ``pycocotools`` or ``mx_rcnn_tpu``, PIL is imported only inside ``get_image``'s JPEG branch,
 and its entry points (``Predictor``, ``fit``, ``train_end2end``, ``test``,
-``serve``, ``train_alternate`` and its stage tools) never fall back to the
-CPU when asked for the card.  Plus the one test that
-needs the card (``cuda`` marker): the NMS kernels against their plain versions, and
+``serve``, ``train_alternate`` and its stage tools, also at ``--network
+vgg16``) never fall back to the CPU when asked for the card.  Plus the
+one test that needs the card (``cuda`` marker): the NMS kernels against their plain versions, and
 a chain cut inside a 64-row block.
 """
 
@@ -52,7 +52,7 @@ def test_imports_with_jax_and_the_jax_package_blocked():
                 "train.optim", "train.train_step", "utils.convert_torch",
                 "models.fpn", "native", "eval.mask_rle", "ops.mask_paste",
                 "eval.coco_eval", "data.coco_dataset", "data.mask",
-                "ops.mask_target"):
+                "ops.mask_target", "models.backbones", "models.detector"):
         assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -188,6 +188,28 @@ def test_serve_driver_without_a_card_raises(monkeypatch, tmp_path):
                  "--trace", "--watch"):
         with pytest.raises(SystemExit):
             driver.parse_args(["--synthetic", flag, "1"])
+
+
+def test_vgg_entry_points_without_a_card_raise(monkeypatch, tmp_path):
+    """``--network vgg16`` through every driver without ``--device``
+    needs the card all the same: each raises before writing anything."""
+    from mx_rcnn_tpu_torch import test as test_driver
+    from mx_rcnn_tpu_torch import train_alternate, train_end2end
+    from mx_rcnn_tpu_torch.serve import driver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--network", "vgg16", "--synthetic", "--prefix",
+            str(tmp_path / "vgg"), "--root_path", str(tmp_path / "data")]
+    for mod, run in ((train_end2end, train_end2end.train_net),
+                     (train_alternate, train_alternate.alternate_train),
+                     (test_driver, test_driver.test_rcnn)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(mod.parse_args(argv))
+    sock = tmp_path / "s.sock"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.main(driver.parse_args(["--network", "vgg16", "--synthetic",
+                                       "--unix-socket", str(sock)]))
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.cuda
