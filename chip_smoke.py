@@ -189,7 +189,7 @@ Phases, each printing its own lines:
    three ``MASK_PASTE`` modes, each mask within ``MASK_FLIP_BOUND`` pixels
    of the numpy paste's; ``propose_fpn``'s joint NMS in float32 against
    ``nms_padded``, the NMS pair timed at the joint shape (B · 5 619 →
-   300); the serve driver refusing the network by name.
+   300).
 13. FPN and Mask R-CNN training at full width (``fpn_train_slice``):
    phase 12's set with one more non-crowd annotation as an RLE dict;
    ``python -m mx_rcnn_tpu_torch.train_end2end --network
@@ -210,10 +210,38 @@ Phases, each printing its own lines:
    launches, the combined model with stage 4's neck, its box stats;
    ``train_alternate --network resnet101_fpn_mask`` refused with the JAX
    package's message.
-14. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
+14. VGG-16 Faster R-CNN at full width (``vgg_slice``): training, ``test``
+   on both routes, the server in both modes and ``train_alternate`` at
+   ``--network vgg16``, the kernels at VGG's shapes.
+15. The serving stack (``serving_stack_slice``), three parts:
+   ``fpn_serve``: ``resnet101_fpn_mask`` served from phase 12's weights
+   (COCO preset, 81 classes, 800×1344, bf16, batch 2, ``TEST.THRESH``
+   0.001) through ``serve.driver.build_engine`` in host-NMS and e2e mode,
+   ``FPN_SERVE_REQUESTS`` requests a mode in both orientations, each reply
+   equal to the offline records of its batch row, the NMS pair once /
+   twice a batch, the mask head never run; one batch's 2 × 80 per-class
+   row sets through the C++ ``native.nms`` and the numpy NMS, the same
+   keeps, both timed beside ``serve/postprocess``; the NMS pair at the
+   served joint proposal and post-process shapes against its plain
+   versions, timed with its bound.  ``stream_slice``: phase 7's C4
+   engine (e2e) under ``STREAM_COUNT`` streams × ``STREAM_FRAMES``
+   frames through ``POST /stream``, gate off (every reply ``/predict``'s
+   records) and gate on over static scenes (skips with delta 0 and no
+   engine work, the refresh every ``STREAM_MAX_SKIP`` + 1 frames,
+   coalesced batches), the gate's host wall and ``frame_delta``'s device
+   time.  ``pool_slice``: ``--models c4=resnet101,fpn=resnet101_fpn
+   --dataset coco --serve-e2e --cascade c4:fpn`` (phase 11's COCO
+   checkpoint, seeded FPN weights) under a weight budget of one model:
+   alternating ``?model=`` traffic paging at every switch (page ms and
+   bytes, device memory across a switch, the weights bitwise after it,
+   no first dispatch), the cascade at thresh 0 (every reply the FPN
+   model's) and 1 (none escalated, the gate's hardness equal to
+   ``hardness_from_records``).
+16. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
    shape it was timed at: the training path's, then COCO's, then FPN's
-   joint proposal, then FPN training's anchors and joint proposal), then
-   the last line ``{"ok": true, "device": {...}}``.
+   joint proposal, then FPN training's anchors and joint proposal, then
+   VGG's, then FPN serving's), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
 fails.  Imports nothing of JAX or of the JAX package.
@@ -407,6 +435,27 @@ VGG_ALT_STEPS = 2
 VGG_REQUESTS = 16
 VGG_ANCHORS = 21_546
 VGG_PARAMS = 137_078_239
+# phase 15, the serving stack: the FPN server's flags (phase 12's network;
+# random weights score every class near 1/81, so detections are kept from
+# 0.001 and no reply is empty), its requests a mode and raw sizes (both
+# orientations of the 800×1344 bucket), the runs of each host NMS route;
+# the streams over phase 7's engine (VOC's sizes, both orientations), the
+# frames of each, the gate's threshold and skip budget; the pool's flags
+# (the COCO preset of phase 11) and its alternating requests
+FPN_SERVE_FLAGS = FPN_FLAGS + ["--cfg", "TEST__THRESH=0.001"]
+FPN_SERVE_CONFIG = (81, (800, 1344), (1344, 800), True, "bfloat16")
+FPN_SERVE_REQUESTS = 16
+SERVE15_SIZES = ((480, 640), (640, 480), (375, 500), (500, 375))
+NATIVE_NMS_REPS = 5
+SERVE15_STREAM_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333))
+STREAM_COUNT = 4
+STREAM_FRAMES = 16
+STREAM_SKIP_THRESH = 2.0
+STREAM_MAX_SKIP = 5
+POOL_FLAGS = ["--dataset", "coco",
+              "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}",
+              "--cfg", "TEST__THRESH=0.001"]
+POOL_REQUESTS = 8
 # the float32 R-CNN forward on the card against CPU copies (TF32 off)
 VGG_F32_RTOL = 1e-4
 
@@ -3568,8 +3617,7 @@ def fpn_slice(P, work: str, seed: int, device=None, flags=FPN_FLAGS) -> list:
       the kernels' kept rows equal ``nms_padded``'s, and ``propose_fpn``
       on the kernels equal to it on the plain NMS; on the bf16 main path's
       joint candidates (B · 5 619) the NMS pair against its plain versions,
-      timed, with its bound;
-    * the serve driver refuses the FPN network by name.
+      timed, with its bound.  Phase 15 serves these weights.
 
     Returns the NMS pair's rows at the joint proposal's shape."""
     tstart = time.perf_counter()
@@ -3612,15 +3660,6 @@ def fpn_slice(P, work: str, seed: int, device=None, flags=FPN_FLAGS) -> list:
     n_params = int(sum(v.size for v in params.values()))
     del model, params
     weights_s = time.perf_counter() - t0
-
-    try:
-        P.serve_driver.build_engine(P.serve_driver.parse_args(
-            flags + on + ["--prefix", prefix, "--epoch", "1",
-                          "--unix-socket", "unused"]), cfg)
-        fail("fpn: the serve driver built an engine for an FPN network")
-    except NotImplementedError as e:
-        if "serving of an FPN network" not in str(e):
-            fail(f"fpn: the serve driver refused with {e}")
 
     # ---- evaluation through the test driver ----
     seen = []
@@ -4785,6 +4824,607 @@ def vgg_kernels(P, tcfg, ecfg, captured, train_launches, eval_launches
     return rows
 
 
+# ---- the serving stack (phase 15) ---------------------------------------------
+
+def either_row(got, rows) -> bool:
+    """``got`` equal (:func:`records_equal`) to the offline records of
+    either batch row."""
+    return any(records_equal(got, r) for r in rows)
+
+
+def fpn_joint_candidates(P, predictor, images, info, te, dev):
+    """``propose_fpn``'s joint NMS input on one batch of the predictor:
+    the P2–P6 pyramid, the RPN over it, the per-level cut → (boxes (B, n,
+    4), scores, valid, per-level candidate counts)."""
+    m = predictor.model
+    with torch.inference_mode():
+        feats = m._pyramid(images)
+        levels = m._rpn_over_levels(feats)
+        probs = [P.fg_prob(c) for c, _, _ in levels]
+        boxes, scores, valid = P.fpn_candidates(
+            probs, [b_ for _, b_, _ in levels], [a for _, _, a in levels],
+            torch.as_tensor(info, device=dev),
+            pre_nms_top_n=te.RPN_PRE_NMS_TOP_N, min_size=te.RPN_MIN_SIZE)
+    return boxes, scores, valid, [int(p.shape[1]) for p in probs]
+
+
+def native_nms_times(P, predictor, cfg, batch) -> dict:
+    """One served batch's per-class NMS on the host (``per_class_nms`` over
+    its images, K − 1 row sets each) with the C++ ``native.nms`` and with
+    the numpy ``ops.nms.nms``: the same kept rows, and each route's median
+    wall over ``NATIVE_NMS_REPS`` runs."""
+    te = cfg.TEST
+    dets = P.tester.im_detect(predictor, batch)
+    k = cfg.NUM_CLASSES
+    rows = [int(((s[:, c] > te.THRESH) & v).sum()) for s, _, v in dets
+            for c in range(1, k)]
+
+    def run(fn):
+        return [P.post.per_class_nms(s, b_, v, k, te.THRESH, te.NMS,
+                                     te.MAX_PER_IMAGE, nms_fn=fn)
+                for s, b_, v in dets]
+
+    walls, out = {}, {}
+    for name, fn in (("native", P.native.nms), ("numpy", P.np_nms)):
+        ts = []
+        for _ in range(NATIVE_NMS_REPS):
+            t0 = time.perf_counter()
+            out[name] = run(fn)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        walls[name] = statistics.median(ts)
+    for a, b in zip(out["native"], out["numpy"]):
+        for c in range(1, k):
+            if not np.array_equal(a[c], b[c]):
+                fail(f"serving stack: the native and numpy NMS keep other "
+                     f"rows of class {c}")
+    return {"images": len(dets), "row_sets": len(rows),
+            "rows_per_set_mean": float(np.mean(rows)),
+            "rows_per_set_max": int(np.max(rows)),
+            "kept": int(sum(len(d[c]) for d in out["native"]
+                            for c in range(1, k))),
+            "native_ms": walls["native"], "numpy_ms": walls["numpy"],
+            "speedup": walls["numpy"] / walls["native"], "identical": True}
+
+
+def fpn_serve(P, work: str, seed: int, fpn_prefix: str, dev) -> list:
+    """``resnet101_fpn_mask`` served at full width (phase 12's weights, the
+    COCO preset: 81 classes, 800×1344, bf16, batch 2, ``TEST.THRESH``
+    0.001 so random weights answer): ``serve.driver.build_engine``, then
+    :func:`serve_mode` in host-NMS and e2e mode (warmup's 2 programs,
+    ``FPN_SERVE_REQUESTS`` requests, each reply equal to the offline
+    records of its batch row, the NMS pair once / twice a batch), the mask
+    head never run; one batch's per-class NMS native against numpy
+    (:func:`native_nms_times`); the NMS pair at the served shapes (the
+    joint proposal and the post-process), against ``nms_padded`` /
+    ``nms_padded_batch`` and timed with its bound.  Returns the rows."""
+    t_phase = time.perf_counter()
+    P.telemetry.configure(work, stream=False)
+    sargs = P.serve_driver.parse_args(FPN_SERVE_FLAGS + [
+        "--prefix", fpn_prefix, "--epoch", "1", "--serve-batch", str(BATCH),
+        "--max-delay-ms", "10", "--unix-socket", "unused"])
+    cfg = P.config_from_args(sargs, train=False)
+    te = cfg.TEST
+    predictor, engine = P.serve_driver.build_engine(sargs, cfg)
+    got = (cfg.NUM_CLASSES, engine.bucket_key(480, 640),
+           engine.bucket_key(640, 480), cfg.network.HAS_MASK,
+           cfg.tpu.COMPUTE_DTYPE)
+    if got != FPN_SERVE_CONFIG:
+        fail(f"fpn serve: config {got}")
+    stride = max(cfg.network.IMAGE_STRIDE, cfg.network.RPN_FEAT_STRIDE)
+    rng = np.random.RandomState(seed + 15)
+    images = [coco_image(rng, h, w, 3, COCO_IDS)[0] for h, w in SERVE15_SIZES]
+    mask_calls = []
+    hook = predictor.model.mask_head.register_forward_hook(
+        lambda *a: mask_calls.append(1))
+    served = {}
+    try:
+        try:
+            served["host_nms"] = serve_mode(
+                P, predictor, engine, cfg, os.path.join(work, "fpn-h.sock"),
+                images, e2e=False, requests=FPN_SERVE_REQUESTS)
+        finally:
+            engine.stop()
+        engine = P.serve.ServeEngine(predictor, cfg, dataclasses.replace(
+            engine.opts, serve_e2e=True)).start()
+        try:
+            served["e2e"] = serve_mode(
+                P, predictor, engine, cfg, os.path.join(work, "fpn-e.sock"),
+                images, e2e=True, requests=FPN_SERVE_REQUESTS)
+        finally:
+            engine.stop()
+    finally:
+        hook.remove()
+    if mask_calls:
+        fail(f"fpn serve: the mask head ran {len(mask_calls)} times")
+    # a batch of the two landscape images
+    staged = [P.image_mod.stage_raw_to_bucket(im, cfg.tpu.SCALES[0], stride)
+              for im in images[::2]]
+    batch = predictor.batch_put({
+        "images": np.stack([s[0] for s in staged]),
+        "raw_hw": np.stack([s[1] for s in staged]),
+        "prep_ratio": np.stack([s[2] for s in staged]),
+        "im_info": np.stack([s[3] for s in staged])})
+    nms_times = native_nms_times(P, predictor, cfg, batch)
+    nms_times["serve_postprocess_ms"] = \
+        served["host_nms"]["batch_phase_mean_ms"]["serve/postprocess"]
+    # the NMS pair at the two served shapes, on this batch
+    boxes, _, valid, levels = fpn_joint_candidates(
+        P, predictor, batch["images"], batch["im_info"], te, dev)
+    jrows = time_kernels(P.nms_cuda, boxes, valid, te.RPN_POST_NMS_TOP_N,
+                         te.RPN_NMS_THRESH)
+    ki, km = P.nms_cuda.nms_bitmask(boxes, valid, te.RPN_POST_NMS_TOP_N,
+                                    te.RPN_NMS_THRESH)
+    with torch.inference_mode():
+        rois, roi_valid, cls_prob, deltas, _ = predictor.predict(
+            batch["images"], batch["im_info"])
+        rows = P.per_class_rows(rois, roi_valid, cls_prob, deltas,
+                                torch.as_tensor(batch["im_info"],
+                                                device=dev),
+                                num_classes=cfg.NUM_CLASSES,
+                                thresh=te.THRESH)
+    b, k1, r, _ = rows[0].shape
+    bs, ss, sv = P.rank_rows(*(t.reshape(b * k1, r, *t.shape[3:])
+                               for t in rows))
+    pki, pkm = P.nms_cuda.nms_bitmask(bs, sv, te.MAX_PER_IMAGE, te.NMS)
+    ppi, ppm = P.nms_padded_batch(bs, ss, te.MAX_PER_IMAGE, te.NMS, sv)
+    if not (torch.equal(pki, ppi) and torch.equal(pkm, ppm)):
+        fail("fpn serve: the NMS kernels keep other rows than "
+             "nms_padded_batch at the post-process shape")
+    prows = time_kernels(P.nms_cuda, bs, sv, te.MAX_PER_IMAGE, te.NMS)
+    for k in jrows + prows:
+        if k["max_abs_err"] != 0.0:
+            fail(f"fpn serve: {k['name']} disagrees with its plain version")
+    n = int(boxes.shape[1])
+    for k in jrows:
+        k.update(launches=served["host_nms"]["launches"][k["name"]],
+                 shape=f"fpn served joint proposal: B={BATCH}, n={n} -> "
+                       f"{te.RPN_POST_NMS_TOP_N}")
+    for k in prows:
+        k.update(launches=served["e2e"]["launches"][k["name"]],
+                 shape=f"fpn served post-process: {b * k1} rows x {r} -> "
+                       f"{te.MAX_PER_IMAGE}")
+    del predictor, engine, batch, rois, cls_prob, deltas, rows, bs, ss, sv
+    P.telemetry.shutdown()
+    torch.cuda.empty_cache()
+    log("fpn_serve", network=cfg.network.NETWORK, classes=cfg.NUM_CLASSES,
+        bucket=list(got[1]), dtype=cfg.tpu.COMPUTE_DTYPE, thresh=te.THRESH,
+        sizes=[list(s) for s in SERVE15_SIZES], batch=BATCH, modes=served,
+        mask_head_calls=len(mask_calls), boxes_only=True,
+        native_nms=nms_times,
+        joint_proposal={"levels": levels, "n": n,
+                        "kept": [int(x) for x in km.sum(1)]},
+        kernels=jrows + prows, seconds=time.perf_counter() - t_phase)
+    return jrows + prows
+
+
+def post_ndjson(P, sock: str, frames: list) -> list:
+    """One ``POST /stream`` of NDJSON frames → the parsed reply lines."""
+    body = "\n".join(json.dumps(f) for f in frames).encode()
+    status, raw, ctype = P.serve.unix_http_request_raw(
+        sock, "POST", "/stream", body, timeout=600)
+    if status != 200 or "ndjson" not in ctype:
+        fail(f"stream: /stream answered {status} {ctype}")
+    return [json.loads(ln) for ln in raw.decode().splitlines()]
+
+
+def stream_slice(P, prefix: str, epoch: int, work: str, seed: int,
+                 dev) -> dict:
+    """Streams over phase 7's C4 engine (its checkpoint and flags, e2e,
+    batch 2): ``STREAM_COUNT`` streams × ``STREAM_FRAMES`` frames each,
+    through ``POST /stream``.
+
+    * gate off: each stream's client posts its frames (four raw sizes, both
+      orientations) in one NDJSON body, the clients at once; every frame
+      forwards, and each reply equals the offline records of one of its
+      image's batch rows (what ``/predict`` answers); the engine's stream
+      counters against its batches; the NMS pair twice a batch;
+    * gate on (``STREAM_SKIP_THRESH``, ``max_skip`` ``STREAM_MAX_SKIP``),
+      a static scene per stream, the streams' frames interleaved in one
+      body: frames 1, 1 + (max_skip + 1), ... forward (the refreshes), the
+      rest skip with delta 0 and move no engine counter; the forwarded
+      frames of different streams share batches (coalesced);
+    * the gate's host wall (``stream/skip_time``) and ``frame_delta``'s
+      device time alone (CUDA events) beside its bytes bound."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed + 16)
+    images = [boxes_image(rng, *hw)[0] for hw in SERVE15_STREAM_SIZES]
+    sargs = P.serve_driver.parse_args(EVAL_FLAGS + [
+        "--prefix", prefix, "--epoch", str(epoch), "--serve-batch",
+        str(BATCH), "--max-delay-ms", "10", "--serve-e2e",
+        "--unix-socket", "unused"])
+    cfg = P.config_from_args(sargs, train=False)
+    predictor, engine = P.serve_driver.build_engine(sargs, cfg)
+    out = {}
+    servers = []
+    try:
+        if P.serve.warmup(engine) != 2:
+            fail("stream: the engine's warmup did not first-dispatch 2 "
+                 "programs")
+        offline = [offline_records(P, predictor, cfg, im, True)
+                   for im in images]
+        if not all(all(o) for o in offline):
+            fail("stream: the offline path finds no detections for an image")
+        payloads = [P.serve.encode_image_payload(im) for im in images]
+        mgrs = {"off": P.stream_mod.StreamManager(engine)}
+        for gate, mgr in mgrs.items():
+            sock = os.path.join(work, f"stream-{gate}.sock")
+            servers.append(P.serve.make_server(engine, unix_socket=sock,
+                                               stream=mgr))
+            threading.Thread(target=servers[-1].serve_forever,
+                             daemon=True).start()
+        # ---- gate off ----
+        sock = os.path.join(work, "stream-off.sock")
+        replies = [None] * STREAM_COUNT
+        base = dict(engine.counters)
+
+        def client(i):
+            replies[i] = post_ndjson(P, sock, [
+                dict(payloads[(i + j) % len(images)], stream_id=f"cam{i}",
+                     seq=j + 1) for j in range(STREAM_FRAMES)])
+
+        torch.cuda.synchronize()
+        P.nms_cuda.nms_mask.launches = P.nms_cuda.nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(STREAM_COUNT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        launches = {"nms_mask": P.nms_cuda.nms_mask.launches,
+                    "nms_sweep": P.nms_cuda.nms_sweep.launches}
+        c = {k: engine.counters[k] - base[k] for k in base}
+        for i, lines in enumerate(replies):
+            if lines is None or len(lines) != STREAM_FRAMES:
+                fail(f"stream [off]: stream {i} got {lines and len(lines)} "
+                     f"replies")
+            for j, rep in enumerate(lines):
+                if rep["status"] != 200 or rep["skipped"] or \
+                        rep["seq"] != j + 1:
+                    fail(f"stream [off]: cam{i} frame {j + 1}: {rep}")
+                if not either_row(rep["detections"],
+                                  offline[(i + j) % len(images)]):
+                    fail(f"stream [off]: cam{i} frame {j + 1}: not /predict's "
+                         f"records for its image")
+        frames = STREAM_COUNT * STREAM_FRAMES
+        if not (c["served"] == frames == c["stream_batch_frames"]
+                and c["stream_batches"] == c["batches"]
+                and c["recompiles"] == 0):
+            fail(f"stream [off]: engine counters {c}")
+        for name, count in launches.items():
+            if count != 2 * c["batches"]:
+                fail(f"stream [off]: {name} launched {count} times in "
+                     f"{c['batches']} batches")
+        m = mgrs["off"].metrics()
+        out["gate_off"] = {
+            "streams": STREAM_COUNT, "frames": frames, "wall_s": wall,
+            "frames_per_s": frames / wall, "batches": c["batches"],
+            "stream_batches": c["stream_batches"],
+            "coalesced_batches": c["stream_coalesced_batches"],
+            "batch_occupancy": m["batch_occupancy"], "launches": launches,
+            "replies_match_predict": True}
+        # ---- gate on, a static scene per stream ----
+        mgr = P.stream_mod.StreamManager(engine, P.stream_mod.StreamOptions(
+            skip_thresh=STREAM_SKIP_THRESH, max_skip=STREAM_MAX_SKIP))
+        warmed = mgr.warmup()
+        if warmed != 2:
+            fail(f"stream [on]: warmup first-dispatched {warmed} gate "
+                 f"programs, expected 2")
+        sock = os.path.join(work, "stream-on.sock")
+        servers.append(P.serve.make_server(engine, unix_socket=sock,
+                                           stream=mgr))
+        threading.Thread(target=servers[-1].serve_forever,
+                         daemon=True).start()
+        base = dict(engine.counters)
+        body = [dict(payloads[i], stream_id=f"static{i}", seq=j + 1)
+                for j in range(STREAM_FRAMES) for i in range(STREAM_COUNT)]
+        torch.cuda.synchronize()
+        P.nms_cuda.nms_mask.launches = P.nms_cuda.nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        lines = post_ndjson(P, sock, body)
+        wall = time.perf_counter() - t0
+        launches = {"nms_mask": P.nms_cuda.nms_mask.launches,
+                    "nms_sweep": P.nms_cuda.nms_sweep.launches}
+        c = {k: engine.counters[k] - base[k] for k in base}
+        want_fwd = [j % (STREAM_MAX_SKIP + 1) == 0
+                    for j in range(STREAM_FRAMES)]
+        for n, rep in enumerate(lines):
+            i, j = n % STREAM_COUNT, n // STREAM_COUNT
+            if rep["status"] != 200 or rep["skipped"] == want_fwd[j]:
+                fail(f"stream [on]: static{i} frame {j + 1}: expected "
+                     f"{'forward' if want_fwd[j] else 'skip'}: {rep}")
+            if rep["skipped"] and rep.get("delta") != 0.0:
+                fail(f"stream [on]: static{i} frame {j + 1}: delta "
+                     f"{rep.get('delta')} on a static scene")
+            if not either_row(rep["detections"], offline[i]):
+                fail(f"stream [on]: static{i} frame {j + 1}: not the "
+                     f"records of its image")
+        fwd = STREAM_COUNT * sum(want_fwd)
+        mc = mgr.metrics()["counters"]
+        refreshes = STREAM_COUNT * (sum(want_fwd) - 1)
+        if not (c["served"] == fwd == mc["forwarded"]
+                and mc["skipped"] == len(lines) - fwd
+                and mc["refreshes"] == refreshes
+                and c["stream_batch_frames"] == fwd
+                and c["stream_coalesced_batches"] >= 1
+                and c["recompiles"] == 0):
+            fail(f"stream [on]: engine {c}, manager {mc}")
+        for name, count in launches.items():
+            if count != 2 * c["batches"]:
+                fail(f"stream [on]: {name} launched {count} times in "
+                     f"{c['batches']} batches")
+        # the gate alone on the card: two staged buckets, device time
+        s0 = P.image_mod.stage_raw_to_bucket(
+            images[0], cfg.tpu.SCALES[0],
+            max(cfg.network.IMAGE_STRIDE, cfg.network.RPN_FEAT_STRIDE))[0]
+        a = torch.from_numpy(s0).to(dev)
+        b_ = torch.from_numpy(np.ascontiguousarray(s0[::-1])).to(dev)
+        delta_ms = cuda_median_ms(lambda: P.stream_mod.frame_delta(a, b_),
+                                  KERNEL_RUN)
+        nbytes = 2 * a.numel() + 4
+        st = mgr.metrics()
+        out["gate_on"] = {
+            "streams": STREAM_COUNT, "frames": len(lines), "wall_s": wall,
+            "skip_thresh": STREAM_SKIP_THRESH, "max_skip": STREAM_MAX_SKIP,
+            "forwarded": mc["forwarded"], "skipped": mc["skipped"],
+            "refreshes": mc["refreshes"],
+            "delta_dispatches": mc["delta_dispatches"],
+            "batches": c["batches"], "served": c["served"],
+            "coalesced_batches": c["stream_coalesced_batches"],
+            "skip_fraction": st["skip_fraction"],
+            "skip_time_ms": st.get("latency"), "launches": launches,
+            "gate_programs": warmed,
+            "frame_delta_device_ms": delta_ms,
+            "frame_delta_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "frame_delta_bytes": nbytes,
+            "bucket": list(s0.shape)}
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        engine.stop()
+    del predictor, engine
+    torch.cuda.empty_cache()
+    log("stream", network=cfg.network.NETWORK, batch=BATCH,
+        sizes=[list(s) for s in SERVE15_STREAM_SIZES], **out,
+        seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def state_snapshot(model) -> list:
+    return [t.detach().cpu().clone() for t in (*model.parameters(),
+                                               *model.buffers())]
+
+
+def pool_slice(P, coco_prefix: str, work: str, seed: int, dev) -> dict:
+    """The model pool and the cascade at full width, through the driver:
+    ``--models c4=resnet101,fpn=resnet101_fpn --dataset coco --serve-e2e
+    --cascade c4:fpn`` (``serve.driver.build_pool``), c4 on phase 11's
+    COCO checkpoint, fpn on seeded random weights written here, batch 2,
+    ``TEST.THRESH`` 0.001, and ``--weight-budget-mb`` one model's bytes
+    (so every switch of model pages), over a Unix socket:
+
+    * the two buckets agree (the cascade's precondition); the cascade
+      gate is first-dispatched once;
+    * pool traffic (the router at thresh 1, so c4 answers itself):
+      ``POOL_REQUESTS`` requests alternating ``?model=c4`` and
+      ``?model=fpn``, each equal to its model's offline records; the
+      page-ins and page-outs, their ms and bytes, device memory across
+      one switch, c4's weights bitwise after the paging, no first
+      dispatch, the NMS pair twice a batch;
+    * the cascade at thresh 0: every reply escalated and equal to the FPN
+      model's records; at thresh 1: none escalated, the c4 model's
+      records, and the gate's hardness equal to ``hardness_from_records``
+      of them (5e-5, the provenance rounds to 1e-4); the gate's host wall
+      (its readback waits for the forward queued before it) and its
+      device time alone (CUDA events)."""
+    t_phase = time.perf_counter()
+    fpn_prefix = os.path.join(work, "fpn_box", "e2e")
+    flags = POOL_FLAGS + ["--serve-batch", str(BATCH), "--max-delay-ms",
+                          "10", "--serve-e2e"]
+    fcfg = P.config_from_args(P.serve_driver.parse_args(
+        flags + ["--network", "resnet101_fpn", "--unix-socket", "u"]),
+        train=False)
+    t0 = time.perf_counter()
+    fmodel = P.build_model(fcfg)
+    P.save_params_npz(P.epoch_path(fpn_prefix, 1),
+                      P.random_params(fmodel, seed=seed + 17))
+    ccfg = P.config_from_args(P.serve_driver.parse_args(
+        flags + ["--network", "resnet101", "--unix-socket", "u"]),
+        train=False)
+    nbytes = {"fpn": P.pool_mod.param_nbytes(fmodel),
+              "c4": P.pool_mod.param_nbytes(P.build_model(ccfg))}
+    del fmodel
+    weights_s = time.perf_counter() - t0
+    budget_mb = max(nbytes.values()) / (1 << 20) + 1.0
+    sock = os.path.join(work, "pool.sock")
+    args = P.serve_driver.parse_args(flags + [
+        "--models", "c4=resnet101,fpn=resnet101_fpn",
+        "--model-arg", f"c4:prefix={coco_prefix}", "--model-arg",
+        "c4:epoch=1", "--model-arg", f"fpn:prefix={fpn_prefix}",
+        "--model-arg", "fpn:epoch=1", "--weight-budget-mb", repr(budget_mb),
+        "--cascade", "c4:fpn", "--cascade-thresh", "1.0",
+        "--unix-socket", sock])
+    t0 = time.perf_counter()
+    pool, streams, router = P.serve_driver.build_pool(args)
+    build_s = time.perf_counter() - t0
+    server = P.serve.make_server(pool.engine_for("c4"), pool=pool,
+                                 streams=streams, cascade=router,
+                                 unix_socket=sock)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    out = {"weights_s": weights_s, "build_s": build_s,
+           "budget_bytes": pool.budget_bytes, "model_bytes": nbytes}
+    try:
+        engines = {mid: pool.engine_for(mid) for mid in ("c4", "fpn")}
+        buckets = {mid: [e.bucket_key(480, 640), e.bucket_key(640, 480)]
+                   for mid, e in engines.items()}
+        if buckets["c4"] != buckets["fpn"]:
+            fail(f"pool: the presets disagree on buckets {buckets}")
+        if P.serve.unix_http_request(sock, "GET", "/readyz")[0] != 200:
+            fail("pool: /readyz is not 200 after build_pool")
+        warm = {mid: e.counters["warmup_programs"]
+                for mid, e in engines.items()}
+        rng = np.random.RandomState(seed + 18)
+        images = [coco_image(rng, h, w, 3, COCO_IDS)[0]
+                  for h, w in SERVE15_SIZES[:2]]
+        payloads = [P.serve.encode_image_payload(im) for im in images]
+        c4 = pool.entry("c4")
+        if c4.resident or c4.host_params is None:
+            fail("pool: c4 was not paged out when fpn was added")
+        snap = [t.clone() for t in c4.host_params]
+
+        def offline(mid):
+            pool.ensure_resident(mid)
+            e = pool.entry(mid)
+            return [offline_records(P, e.predictor, e.cfg, im, True)
+                    for im in images]
+
+        def set_thresh(t):
+            router.thresh, router._thresh_raw = t, t * P.HARDNESS_MAX
+
+        def send(path, i):
+            status, resp = P.serve.unix_http_request(
+                sock, "POST", path, payloads[i], timeout=600)
+            if status != 200:
+                fail(f"pool: {path} answered {status}: {resp}")
+            return resp
+
+        # ---- mixed traffic, paging at every switch ----
+        base = {mid: dict(e.counters) for mid, e in engines.items()}
+        pc0 = dict(pool.counters)
+        torch.cuda.synchronize()
+        mem = [torch.cuda.memory_allocated()]
+        P.nms_cuda.nms_mask.launches = P.nms_cuda.nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        replies = []
+        for n in range(POOL_REQUESTS):
+            mid = ("c4", "fpn")[n % 2]
+            replies.append((mid, n // 2 % len(images),
+                            send(f"/predict?model={mid}",
+                                 n // 2 % len(images))))
+        wall = time.perf_counter() - t0
+        launches = {"nms_mask": P.nms_cuda.nms_mask.launches,
+                    "nms_sweep": P.nms_cuda.nms_sweep.launches}
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        c = {mid: {k: e.counters[k] - base[mid][k] for k in base[mid]}
+             for mid, e in engines.items()}
+        batches = sum(x["batches"] for x in c.values())
+        for name, count in launches.items():
+            if count != 2 * batches:
+                fail(f"pool: {name} launched {count} times in {batches} "
+                     f"batches")
+        if any(x["recompiles"] for x in c.values()) or any(
+                e.counters["recompiles"] != warm[mid]
+                for mid, e in engines.items()):
+            fail(f"pool: a first dispatch after warmup: {c}")
+        pages = {k: pool.counters[k] - pc0[k] for k in pc0}
+        if pages["weight_page_in"] < POOL_REQUESTS - 1:
+            fail(f"pool: {pages} for {POOL_REQUESTS} alternating requests")
+        # one switch alone: device memory before and after
+        resident = "fpn" if pool.entry("fpn").resident else "c4"
+        other = "c4" if resident == "fpn" else "fpn"
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pool.ensure_resident(other)
+        switch_ms = (time.perf_counter() - t0) * 1e3
+        m1 = torch.cuda.memory_allocated()
+        ref = {mid: offline(mid) for mid in ("c4", "fpn")}
+        pool.ensure_resident("c4")
+        now = state_snapshot(pool.entry("c4").predictor.model)
+        if len(now) != len(snap) or not all(torch.equal(a, b_)
+                                            for a, b_ in zip(now, snap)):
+            fail("pool: c4's weights differ after the paging")
+        del now, snap
+        for mid, i, resp in replies:
+            if not either_row(resp["detections"], ref[mid][i]):
+                fail(f"pool: a ?model={mid} reply is not its model's "
+                     f"records")
+            if resp["cascade"]["model"] != mid or \
+                    resp["cascade"]["escalated"]:
+                fail(f"pool: ?model={mid} answered by {resp['cascade']}")
+        res = pool.residency()
+        out["pool"] = {
+            "requests": POOL_REQUESTS, "wall_s": wall,
+            "requests_per_s": POOL_REQUESTS / wall, "batches": batches,
+            "launches": launches, "paging": pages,
+            "page_ms": res["paging"],
+            "switch": {"from": resident, "to": other, "ms": switch_ms,
+                       "memory_allocated_delta_bytes": m1 - m0,
+                       "bytes_in_minus_out": nbytes[other] - nbytes[resident]},
+            "memory_allocated_bytes": mem,
+            "weights_bitwise_after_paging": True,
+            "replies_match_offline": True}
+        # ---- the cascade ----
+        cas = {}
+        for t in (0.0, 1.0):
+            set_thresh(t)
+            cb = dict(router.counters)
+            got = [send("/predict", i) for i in range(len(images))
+                   for _ in range(2)]
+            cc = {k: router.counters[k] - cb[k] for k in cb}
+            for n, resp in enumerate(got):
+                i = n // 2
+                prov = resp["cascade"]
+                want = "fpn" if t == 0.0 else "c4"
+                if prov["model"] != want or prov["escalated"] != (t == 0.0):
+                    fail(f"cascade thresh {t}: answered {prov}")
+                if not either_row(resp["detections"], ref[want][i]):
+                    fail(f"cascade thresh {t}: reply {n} is not the "
+                         f"{want} model's records")
+                if t == 1.0:
+                    h = P.hardness_from_records(resp["detections"])
+                    if abs(prov["hardness"] - h) > 5e-5 + 5e-5:
+                        fail(f"cascade: gate hardness {prov['hardness']} "
+                             f"vs host {h}")
+            cas[f"thresh_{t:g}"] = {
+                "requests": len(got), "counters": cc,
+                "hardness": [r["cascade"]["hardness"] for r in got]}
+        # the gate alone on the card: its wall in the metrics above holds
+        # the wait for the forward queued before its readback
+        mpi = ccfg.TEST.MAX_PER_IMAGE
+        dets = torch.rand(BATCH, mpi, 6, device=dev)
+        dvalid = torch.ones(BATCH, mpi, dtype=torch.bool, device=dev)
+        gate = P.build_device_hardness()
+        gate_ms = cuda_median_ms(lambda: gate(dets, dvalid), KERNEL_RUN)
+        out["cascade"] = {**cas, "metrics": router.metrics(),
+                          "gate_programs": 1, "buckets": buckets,
+                          "gate_device_ms": gate_ms,
+                          "gate_shape": [BATCH, mpi, 6]}
+        out["residency"] = pool.residency()
+    finally:
+        server.shutdown()
+        server.server_close()
+        pool.stop()
+    del pool, router, streams
+    torch.cuda.empty_cache()
+    log("pool", models={"c4": "resnet101", "fpn": "resnet101_fpn"},
+        dataset="coco", batch=BATCH, **out,
+        seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def serving_stack_slice(P, paths: dict, work: str, seed: int,
+                        device=None) -> list:
+    """Phase 15: FPN serving (:func:`fpn_serve`), streams
+    (:func:`stream_slice`) and the model pool with its cascade
+    (:func:`pool_slice`).  ``paths``: ``voc`` (prefix, epoch) of phase 7's
+    checkpoint, ``coco`` phase 11's prefix, ``fpn`` phase 12's prefix.
+    Returns the NMS pair's rows at the FPN served shapes."""
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    rows = fpn_serve(P, work, seed, paths["fpn"], dev)
+    stream_slice(P, *paths["voc"], work, seed, dev)
+    pool_slice(P, paths["coco"], work, seed, dev)
+    log("serving_stack_total", seconds=time.perf_counter() - t_phase)
+    for k in rows:
+        k.update(route="cuda", source=SOURCES[k["name"]],
+                 replaces=REPLACES[k["name"]])
+    return rows
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -4817,8 +5457,14 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.ops import postprocess as post
     from mx_rcnn_tpu_torch.ops.anchors import all_anchors, generate_anchors
     from mx_rcnn_tpu_torch.ops.assign_anchor import uniform_draws
+    from mx_rcnn_tpu_torch.ops.nms import nms as np_nms
     from mx_rcnn_tpu_torch.ops.nms import (nms_padded, nms_padded_batch,
                                            rank_rows)
+    from mx_rcnn_tpu_torch.serve import pool as pool_mod
+    from mx_rcnn_tpu_torch.serve import stream as stream_mod
+    from mx_rcnn_tpu_torch.flywheel import (HARDNESS_MAX,
+                                            build_device_hardness,
+                                            hardness_from_records)
     from mx_rcnn_tpu_torch.ops.postprocess import per_class_rows
     from mx_rcnn_tpu_torch.ops.proposal import (fpn_candidates, propose,
                                                 propose_fpn,
@@ -4884,7 +5530,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = P._build.build()
     if not P.native.available():
-        fail("the host mask library did not load")
+        fail("the host library csrc/mxr_native.cpp did not load")
     log("build", seconds=time.perf_counter() - t0,
         libraries=sorted(p.name for p in libs.values()))
 
@@ -5072,13 +5718,20 @@ def main() -> int:
         # ---- 14. VGG-16 Faster R-CNN at full width ------------------------
         torch.cuda.empty_cache()
         vgg = vgg_slice(P, work, args.seed)
+
+        # ---- 15. the serving stack at full width --------------------------
+        torch.cuda.empty_cache()
+        stack = serving_stack_slice(P, {
+            "voc": (prefix, epoch),
+            "coco": os.path.join(work, "coco_model", "e2e"),
+            "fpn": os.path.join(work, "fpn_model", "mask")}, work, args.seed)
     log("total", seconds=time.perf_counter() - t_start)
 
-    # ---- 15. the kernels line and the result --------------------------------
+    # ---- 16. the kernels line and the result --------------------------------
     # the main path's rows (the training shape), then the COCO shapes', then
     # FPN's joint proposal, then FPN training's anchors and joint proposal,
-    # then VGG's anchors and proposals
-    kernels += coco + fpn + fpn_train + vgg
+    # then VGG's anchors and proposals, then FPN serving's shapes
+    kernels += coco + fpn + fpn_train + vgg + stack
     order = ("name", "shape", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

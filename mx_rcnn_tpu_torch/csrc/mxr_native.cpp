@@ -1,9 +1,11 @@
-// Host-side mask evaluation for mx_rcnn_tpu_torch: COCO RLE intersection
-// and IoU, the RLE encoder of the device paste's bit-packed masks, and the
-// fused paste + RLE of one mask probability map into its image frame.
+// Host-side evaluation and post-process for mx_rcnn_tpu_torch: the greedy
+// per-class NMS and the box IoU matrix of the host post-process, COCO RLE
+// intersection and IoU, the RLE encoder of the device paste's bit-packed
+// masks, and the fused paste + RLE of one mask probability map into its
+// image frame.
 //
-// The same arithmetic as the JAX package's native library (its RLE and
-// paste part), so the two give bitwise equal counts and IoUs.  A plain C
+// The same arithmetic as the JAX package's native library, so the two give
+// equal kept lists and bitwise equal overlaps, counts and IoUs.  A plain C
 // interface over raw pointers, loaded with ctypes by
 // mx_rcnn_tpu_torch/native.py; built on first use with the host C++
 // compiler into mx_rcnn_tpu_torch/_build/ (kernels/_build.py).
@@ -12,9 +14,70 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <numeric>
 #include <vector>
 
 extern "C" {
+
+// (N,4) x (K,4) -> (N,K) IoU matrix, legacy +1 areas (bbox_overlaps).
+void mxr_bbox_overlaps(const float* boxes, int64_t n, const float* query,
+                       int64_t k, float* out) {
+  for (int64_t j = 0; j < k; ++j) {
+    const float qx1 = query[j * 4], qy1 = query[j * 4 + 1];
+    const float qx2 = query[j * 4 + 2], qy2 = query[j * 4 + 3];
+    const float qarea = (qx2 - qx1 + 1.f) * (qy2 - qy1 + 1.f);
+    for (int64_t i = 0; i < n; ++i) {
+      const float bx1 = boxes[i * 4], by1 = boxes[i * 4 + 1];
+      const float bx2 = boxes[i * 4 + 2], by2 = boxes[i * 4 + 3];
+      const float iw = std::min(bx2, qx2) - std::max(bx1, qx1) + 1.f;
+      if (iw <= 0.f) { out[i * k + j] = 0.f; continue; }
+      const float ih = std::min(by2, qy2) - std::max(by1, qy1) + 1.f;
+      if (ih <= 0.f) { out[i * k + j] = 0.f; continue; }
+      const float barea = (bx2 - bx1 + 1.f) * (by2 - by1 + 1.f);
+      const float inter = iw * ih;
+      out[i * k + j] = inter / (barea + qarea - inter);
+    }
+  }
+}
+
+// Greedy NMS over (N,5) [x1,y1,x2,y2,score], legacy +1 areas: rows in
+// descending score, equal scores in row order (a stable sort); a row is
+// dropped when its IoU with a kept row exceeds thresh.  Writes the kept
+// row indices to keep_out (the caller allocates N) and returns their count.
+int64_t mxr_nms(const float* dets, int64_t n, float thresh,
+                int64_t* keep_out) {
+  std::vector<int64_t> order(n);
+  std::iota(order.begin(), order.end(), 0);
+  std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+    return dets[a * 5 + 4] > dets[b * 5 + 4];
+  });
+  std::vector<char> removed(n, 0);
+  std::vector<float> area(n);
+  for (int64_t i = 0; i < n; ++i)
+    area[i] = (dets[i * 5 + 2] - dets[i * 5] + 1.f) *
+              (dets[i * 5 + 3] - dets[i * 5 + 1] + 1.f);
+  int64_t kept = 0;
+  for (int64_t oi = 0; oi < n; ++oi) {
+    const int64_t i = order[oi];
+    if (removed[i]) continue;
+    keep_out[kept++] = i;
+    const float ix1 = dets[i * 5], iy1 = dets[i * 5 + 1];
+    const float ix2 = dets[i * 5 + 2], iy2 = dets[i * 5 + 3];
+    for (int64_t oj = oi + 1; oj < n; ++oj) {
+      const int64_t j = order[oj];
+      if (removed[j]) continue;
+      const float iw =
+          std::min(ix2, dets[j * 5 + 2]) - std::max(ix1, dets[j * 5]) + 1.f;
+      if (iw <= 0.f) continue;
+      const float ih = std::min(iy2, dets[j * 5 + 3]) -
+                       std::max(iy1, dets[j * 5 + 1]) + 1.f;
+      if (ih <= 0.f) continue;
+      const float inter = iw * ih;
+      if (inter / (area[i] + area[j] - inter) > thresh) removed[j] = 1;
+    }
+  }
+  return kept;
+}
 
 // Advance to the next run, skipping zero-length runs (each skipped run
 // still toggles the value — an RLE starting with count 0 means the mask

@@ -13,8 +13,9 @@ tensor, or a host function of ``native.py`` that is called, calls
 CUDA flags: ``sm_90a`` (Hopper), ``-O3`` and ``-fmad=false`` — the IoU of
 the NMS and assign kernels must round exactly like the plain PyTorch
 version, so no multiply-add may be contracted.  Host flags: ``-O3`` and
-``-ffp-contract=off``, so the mask paste rounds alike on every host (an
-aarch64 compiler would otherwise fuse its bilinear blends).  Clear the
+``-ffp-contract=off``, so the mask paste and the host NMS's IoU round
+alike on every host (an aarch64 compiler would otherwise fuse their
+products and sums).  Clear the
 cache with ``rm -rf mx_rcnn_tpu_torch/_build``.
 """
 

@@ -1,18 +1,20 @@
-"""ctypes bindings of the host mask library, ``csrc/mxr_native.cpp``
-(counterpart of ``mx_rcnn_tpu/native/__init__.py``: ``rle_encode_packed``,
-``paste_rle``, ``rle_iou``).
+"""ctypes bindings of the host library, ``csrc/mxr_native.cpp``
+(counterpart of ``mx_rcnn_tpu/native/__init__.py``: ``nms``,
+``bbox_overlaps``, ``rle_encode_packed``, ``paste_rle``, ``rle_iou``).
 
 The library is built on first use with the host C++ compiler
 (``kernels/_build.py``).  Unlike the JAX package's bindings there is no
 numpy fallback: when the library cannot be built or loaded, every function
 here raises ``RuntimeError`` naming it, and the caller picks another route
-by name (``TEST.MASK_PASTE="host"``).  The greedy NMS and box overlaps of
-the JAX library are not bound here (ROADMAP.md A.6).
+by name (``TEST.MASK_PASTE="host"`` for the masks, an injected
+``nms_fn=ops.nms.nms`` for the host per-class NMS).
 
 Each thread encodes into its own scratch buffer, so the eval loop's host
 workers may call these at once.
 
 API:
+  nms(dets (N, 5) float32, thresh) -> list[int]
+  bbox_overlaps(boxes (N, 4), query (K, 4)) -> (N, K) float32
   rle_encode_packed(packed (Wp, Hp/8) uint8, h, w) -> list[int]
   paste_rle(prob (M, M) float32, box [x1, y1, x2, y2], h, w) -> list[int]
   rle_iou(dts, gts, iscrowd) -> (D, G) float64   (RLE dicts, count lists)
@@ -31,6 +33,8 @@ from mx_rcnn_tpu_torch.kernels import _build
 
 _P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
+    "mxr_bbox_overlaps": (None, [_P, _I64, _P, _I64, _P]),
+    "mxr_nms": (_I64, [_P, _I64, _F, _P]),
     "mxr_rle_encode": (_I64, [_P, _I64, _I64, _I64, _P]),
     "mxr_paste_rle": (_I64, [_P, _I64, _F, _F, _F, _F, _I64, _I64, _P]),
     "mxr_rle_iou": (None, [_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _I64,
@@ -43,9 +47,10 @@ def _lib() -> ctypes.CDLL:
     try:
         return _build.load("mxr_native", _SIGNATURES)
     except (OSError, RuntimeError) as e:
-        raise RuntimeError(f"the host mask library csrc/mxr_native.cpp is "
+        raise RuntimeError(f"the host library csrc/mxr_native.cpp is "
                            f"unavailable ({e}); set TEST.MASK_PASTE='host' "
-                           f"for the numpy paste") from e
+                           f"for the numpy paste, or pass "
+                           f"nms_fn=ops.nms.nms for the numpy NMS") from e
 
 
 def available() -> bool:
@@ -55,6 +60,31 @@ def available() -> bool:
     except RuntimeError:
         return False
     return True
+
+
+def nms(dets: np.ndarray, thresh: float) -> List[int]:
+    """Greedy NMS over (N, 5) [x1, y1, x2, y2, score] rows with legacy +1
+    areas → kept row indices, score-descending, equal scores in row order
+    (``ops/nms.py:nms``'s contract, which is its numpy oracle)."""
+    lib = _lib()
+    dets = np.ascontiguousarray(dets, np.float32).reshape(-1, 5)
+    n = len(dets)
+    if n == 0:
+        return []
+    keep = np.empty(n, np.int64)
+    cnt = lib.mxr_nms(dets.ctypes.data, n, float(thresh), keep.ctypes.data)
+    return keep[:cnt].tolist()
+
+
+def bbox_overlaps(boxes: np.ndarray, query: np.ndarray) -> np.ndarray:
+    """(N, 4) × (K, 4) boxes → (N, K) float32 IoU with legacy +1 areas."""
+    lib = _lib()
+    boxes = np.ascontiguousarray(boxes, np.float32).reshape(-1, 4)
+    query = np.ascontiguousarray(query, np.float32).reshape(-1, 4)
+    out = np.empty((len(boxes), len(query)), np.float32)
+    lib.mxr_bbox_overlaps(boxes.ctypes.data, len(boxes), query.ctypes.data,
+                          len(query), out.ctypes.data)
+    return out
 
 
 def _counts_buffer(n: int) -> np.ndarray:

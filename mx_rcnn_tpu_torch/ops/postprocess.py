@@ -3,9 +3,10 @@
 ``per_class_nms``, ``device_postprocess``, ``device_dets_to_per_class``,
 ``detections_to_records``).
 
-The host route is numpy per image, after the forward's readback, with the
-reference ``pred_eval`` accounting: per-class score threshold → NMS →
-global per-image cap that keeps every detection tied at the cut-off score.
+The host route runs per image, after the forward's readback, with the
+reference ``pred_eval`` accounting: per-class score threshold → NMS (the
+C++ ``native.nms``) → global per-image cap that keeps every detection tied
+at the cut-off score.
 The device route (:func:`device_postprocess`) runs the same steps on the
 forward's tensors, where they lie, and keeps exactly ``max_per_image``
 rows.
@@ -18,8 +19,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from mx_rcnn_tpu_torch import native
 from mx_rcnn_tpu_torch.ops.boxes import bbox_pred, clip_boxes
-from mx_rcnn_tpu_torch.ops.nms import nms, nms_ranked
+from mx_rcnn_tpu_torch.ops.nms import nms_ranked
 
 _NEG = -1e10
 
@@ -38,10 +40,15 @@ def decode_image_boxes(rois: np.ndarray, deltas: np.ndarray,
 
 def per_class_nms(scores: np.ndarray, boxes: np.ndarray, valid,
                   num_classes: int, thresh: float, nms_thresh: float,
-                  max_per_image: int, nms_fn=nms) -> List[Optional[np.ndarray]]:
+                  max_per_image: int,
+                  nms_fn=None) -> List[Optional[np.ndarray]]:
     """One image's (R, K) scores + (R, 4K) original-frame boxes →
     per-class (N, 5) [x1,y1,x2,y2,score] detections; index 0 (background)
-    is ``None``."""
+    is ``None``.  ``nms_fn`` defaults to the C++ ``native.nms``, which
+    raises by name when the host library cannot be built; the numpy
+    ``ops.nms.nms`` (its oracle, same kept lists) is injectable."""
+    if nms_fn is None:
+        nms_fn = native.nms
     v = np.asarray(valid, bool)
     dets: List[Optional[np.ndarray]] = [None] * num_classes
     for k in range(1, num_classes):

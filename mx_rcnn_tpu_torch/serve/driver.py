@@ -9,16 +9,36 @@ SIGINT.  Run as ``python -m mx_rcnn_tpu_torch.serve``::
     python -m mx_rcnn_tpu_torch.serve --prefix model/e2e --epoch 10 \\
         --unix-socket /tmp/serve.sock --target-p99-ms 200
 
-``--loader-workers N`` stages host-NMS requests in N worker processes
-(``data/workers.py``; the ring lives in ``/dev/shm``).  ``--synthetic``
-serves seeded random weights (seed 0) and scales
-pixels by 127 (random weights cannot absorb the raw 0..255 range).
-Without a card the driver raises unless it is given ``--device cpu``.  The
-first SIGTERM/SIGINT shuts down in order (frontend, controller, engine,
-telemetry summary) and exits 0; a second one exits at once with 130.  The
-flags of the modes not ported yet (replicas, fabric, models, cascade,
-streaming, checkpoint watching, capture, tracing, the watchtower) are not
-accepted.
+    python -m mx_rcnn_tpu_torch.serve --network resnet101_fpn_mask \
+        --dataset coco --prefix model/mask --epoch 1 --port 8321
+
+    python -m mx_rcnn_tpu_torch.serve --synthetic --port 8321 --stream \
+        --stream-skip-thresh 2 --stream-max-skip 30 --serve-e2e
+
+    python -m mx_rcnn_tpu_torch.serve --synthetic --dataset coco \
+        --serve-e2e --port 8321 --models c4=resnet101,fpn=resnet101_fpn \
+        --weight-budget-mb 300 --cascade c4:fpn --cascade-thresh 0.5
+
+Every network of the presets is served, FPN and Mask R-CNN ones too (a
+mask network answers with boxes, as the JAX server does: the mask head
+does not run).  ``--loader-workers N`` stages host-NMS requests in N
+worker processes (``data/workers.py``; the ring lives in ``/dev/shm``).
+``--synthetic`` serves seeded random weights (seed 0) and scales pixels
+by 127 (random weights cannot absorb the raw 0..255 range).  Without a
+card the driver raises unless it is given ``--device cpu``.
+
+``--stream`` adds ``POST /stream`` (``serve/stream.py``).  ``--models
+ID=NETWORK,...`` serves several models from one process
+(``serve/pool.py:ModelPool``, ``/predict?model=ID``, the first the
+default), each with its own ``--model-arg ID:KEY=VALUE`` overrides
+(``prefix``, ``epoch``, ``cfg``, ``pin``, ``weight``, ``target-p99-ms``,
+``fidelity``) and the weights paged under ``--weight-budget-mb``;
+``--cascade SMALL:BIG`` (with ``--models`` and ``--serve-e2e``) routes
+through the confidence gate.  The first SIGTERM/SIGINT shuts down in
+order (frontend, controllers, engines, telemetry summary) and exits 0; a
+second one exits at once with 130.  The flags of the modes not ported yet
+(replicas, fabric, checkpoint watching, capture, tracing, the
+watchtower) are not accepted.
 """
 
 from __future__ import annotations
@@ -36,9 +56,11 @@ from mx_rcnn_tpu_torch.models.detector import build_model
 from mx_rcnn_tpu_torch.serve.controller import ControllerOptions, SLOController
 from mx_rcnn_tpu_torch.serve.engine import ServeEngine, ServeOptions
 from mx_rcnn_tpu_torch.serve.frontend import make_server
+from mx_rcnn_tpu_torch.serve.pool import CascadeRouter, ModelPool
+from mx_rcnn_tpu_torch.serve.stream import StreamManager, StreamOptions
 from mx_rcnn_tpu_torch.serve.warmup import warmup
 from mx_rcnn_tpu_torch.tools.common import (add_common_args, config_from_args,
-                                            load_eval_params, refuse_fpn)
+                                            load_eval_params)
 from mx_rcnn_tpu_torch.utils.convert_jax import random_params
 
 
@@ -69,6 +91,49 @@ def parse_args(argv=None):
                         help="single-dispatch serving: device prep, forward "
                              "and the device post-process in one call, one "
                              "(B, cap, 7) readback a batch")
+    parser.add_argument("--stream", action="store_true",
+                        help="enable POST /stream: sequenced frames with "
+                             "per-stream state over the same batcher")
+    parser.add_argument("--stream-skip-thresh", type=float, default=0.0,
+                        dest="stream_skip_thresh",
+                        help="frame-delta gate: mean absolute uint8 pixel "
+                             "delta against the stream's reference frame "
+                             "below which a frame answers with its "
+                             "detections and no forward (0 = off: "
+                             "byte-identical to /predict)")
+    parser.add_argument("--stream-max-skip", type=int, default=30,
+                        dest="stream_max_skip",
+                        help="a full forward after this many consecutive "
+                             "skips")
+    parser.add_argument("--models", default="",
+                        help="serve several models from one process: "
+                             "comma-separated ID=NETWORK entries; "
+                             "/predict?model=ID routes, the first is the "
+                             "default")
+    parser.add_argument("--model-arg", action="append", default=[],
+                        dest="model_arg", metavar="ID:KEY=VALUE",
+                        help="per-model override, repeatable; KEYs: "
+                             "prefix, epoch, cfg (a --cfg PATH=VALUE), pin "
+                             "(1: never paged out), weight (scheduling "
+                             "class, default 1), target-p99-ms, fidelity "
+                             "(cascade | full)")
+    parser.add_argument("--weight-budget-mb", type=float, default=0.0,
+                        dest="weight_budget_mb",
+                        help="device weight budget of --models: weights "
+                             "beyond it are paged to the host, least "
+                             "recently used first, pinned models exempt "
+                             "(0 = unbounded)")
+    parser.add_argument("--cascade", default="", metavar="SMALL:BIG",
+                        help="cascade over two --models entries (needs "
+                             "--serve-e2e): requests go to SMALL, and "
+                             "images whose on-card hardness reaches "
+                             "--cascade-thresh escalate to BIG with their "
+                             "staged pixels")
+    parser.add_argument("--cascade-thresh", type=float, default=0.5,
+                        dest="cascade_thresh",
+                        help="escalation threshold in [0, 1] of the "
+                             "hardness scale: 0 escalates every image, 1 "
+                             "none")
     parser.add_argument("--max-queue", type=int, default=64,
                         dest="max_queue",
                         help="submits beyond this many pending requests get "
@@ -100,10 +165,10 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def build_engine(args, cfg):
+def build_engine(args, cfg, external: bool = False):
     """checkpoint (or ``--synthetic`` weights) → ``Predictor`` → started
-    ``ServeEngine``.  An FPN network is refused by name."""
-    refuse_fpn(cfg, "serving")
+    ``ServeEngine`` (``external``: flushed by a model pool's dispatcher,
+    not a thread of its own)."""
     device = resolve_device(args.device)
     model = build_model(cfg)
     params = (random_params(model, seed=0) if args.synthetic
@@ -115,7 +180,121 @@ def build_engine(args, cfg):
         max_queue=args.max_queue, deadline_ms=args.deadline_ms,
         # the common --loader-workers sizes the request staging pool
         prep_workers=args.loader_workers or 0, serve_e2e=args.serve_e2e))
-    return predictor, engine.start()
+    return predictor, engine.start(external=external)
+
+
+def parse_model_specs(models: str, model_args) -> list:
+    """``--models a=resnet101,b=vgg16`` and repeated ``--model-arg
+    ID:KEY=VALUE`` → spec dicts in order (the first is the default
+    model).  Raises ``SystemExit`` on a malformed entry, as the JAX
+    driver does."""
+    specs = []
+    by_id = {}
+    for entry in models.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        mid, _, network = entry.partition("=")
+        mid, network = mid.strip(), network.strip()
+        if not mid or not network:
+            raise SystemExit(f"--models entries are ID=NETWORK, got "
+                             f"{entry!r}")
+        if mid in by_id:
+            raise SystemExit(f"--models: duplicate model id {mid!r}")
+        spec = {"id": mid, "network": network, "prefix": None,
+                "epoch": None, "cfg": [], "pin": False, "weight": 1.0,
+                "target_p99_ms": None, "fidelity": "cascade"}
+        by_id[mid] = spec
+        specs.append(spec)
+    for arg in model_args or []:
+        mid, sep, kv = arg.partition(":")
+        key, sep2, val = kv.partition("=")
+        if not sep or not sep2 or mid.strip() not in by_id:
+            raise SystemExit(f"--model-arg is ID:KEY=VALUE with ID from "
+                             f"--models, got {arg!r}")
+        spec, key = by_id[mid.strip()], key.strip().replace("-", "_")
+        if key == "cfg":
+            spec["cfg"].append(val)
+        elif key == "pin":
+            spec["pin"] = val.strip().lower() in ("1", "true", "yes")
+        elif key == "weight":
+            spec["weight"] = float(val)
+        elif key == "target_p99_ms":
+            spec["target_p99_ms"] = float(val)
+        elif key == "fidelity":
+            spec["fidelity"] = val.strip()
+        elif key in ("prefix", "epoch"):
+            spec[key] = int(val) if key == "epoch" else val
+        else:
+            raise SystemExit(f"--model-arg: unknown key {key!r}")
+    if not specs:
+        raise SystemExit("--models parsed to zero entries")
+    return specs
+
+
+def _stream_manager(args, engine) -> StreamManager:
+    sm = StreamManager(engine, StreamOptions(
+        skip_thresh=args.stream_skip_thresh,
+        max_skip=args.stream_max_skip))
+    sm.warmup()
+    return sm
+
+
+def build_pool(args):
+    """``--models`` → a started :class:`ModelPool`: for each model its own
+    config, ``Predictor`` and engine (external dispatch), warmed before
+    the next is built, a controller when a p99 target applies, and under
+    ``--stream`` its stream manager; then under ``--cascade`` the warmed
+    :class:`CascadeRouter`.  Returns ``(pool, streams, cascade)``."""
+    specs = parse_model_specs(args.models, args.model_arg)
+    pool = ModelPool(budget_bytes=int(args.weight_budget_mb * (1 << 20)))
+    pool.start()
+    streams = {}
+    for spec in specs:
+        margs = argparse.Namespace(**vars(args))
+        margs.network = spec["network"]
+        margs.cfg = list(args.cfg) + list(spec["cfg"])
+        if spec["prefix"] is not None:
+            margs.prefix = spec["prefix"]
+        if spec["epoch"] is not None:
+            margs.epoch = spec["epoch"]
+        cfg = config_from_args(margs, train=False)
+        predictor, engine = build_engine(margs, cfg, external=True)
+        target = spec["target_p99_ms"]
+        if target is None and args.target_p99_ms > 0:
+            target = args.target_p99_ms
+        controller = None
+        if target:
+            controller = SLOController(engine, ControllerOptions(
+                target_p99_ms=target, interval_s=args.slo_interval_ms / 1e3,
+                window_s=args.slo_window_s, label=spec["id"]))
+        pool.add_model(spec["id"], cfg, predictor, engine,
+                       controller=controller, pinned=spec["pin"],
+                       weight=spec["weight"], fidelity=spec["fidelity"])
+        warmup(engine)
+        if args.stream:
+            streams[spec["id"]] = _stream_manager(args, engine)
+        if controller is not None:
+            controller.start()
+    cascade = None
+    if args.cascade:
+        small, sep, big = args.cascade.partition(":")
+        small, big = small.strip(), big.strip()
+        if not sep or not small or not big:
+            raise SystemExit(f"--cascade is SMALL:BIG with ids from "
+                             f"--models, got {args.cascade!r}")
+        try:
+            cascade = CascadeRouter(pool, small, big,
+                                    thresh=args.cascade_thresh)
+        except (KeyError, ValueError) as e:
+            raise SystemExit(f"--cascade: {e}")
+        cascade.warmup()
+        pool.cascade = cascade
+        if small in streams:
+            streams[small].cascade = cascade
+        logger.info("cascade: %s -> %s at thresh %.3f", small, big,
+                    args.cascade_thresh)
+    return pool, streams, cascade
 
 
 def _install_signals(done: threading.Event):
@@ -136,53 +315,89 @@ def _install_signals(done: threading.Event):
         signal.signal(sig, on_signal)
 
 
+def _serve_until_signal(server, done: threading.Event, what: str):
+    """``serve_forever`` on a worker thread while the main thread waits for
+    the signal (``shutdown()`` from the serving thread would deadlock)."""
+    t = threading.Thread(target=server.serve_forever, name="serve-http",
+                         daemon=True)
+    t.start()
+    logger.info("serving %s", what)
+    done.wait()
+    server.shutdown()
+    server.server_close()
+
+
 def main(args) -> dict:
-    """Serve until a signal; returns the engine's final ``/metrics``."""
+    """Serve until a signal; returns the final ``/metrics`` (the pool's
+    under ``--models``)."""
     setup_logging()
     if not args.unix_socket and not args.port:
         raise SystemExit("pass --port or --unix-socket")
+    if args.cascade and not args.models:
+        raise SystemExit("--cascade routes between two --models entries; "
+                         "pass --models SMALL=...,BIG=... (and "
+                         "--serve-e2e)")
     resolve_device(args.device)  # no card and no --device cpu: raise now
-    cfg = config_from_args(args, train=False)
     if args.telemetry_dir:
         telemetry.configure(args.telemetry_dir, run_meta={
             "driver": "serve", "network": args.network,
-            "serve_batch": args.serve_batch,
+            "models": args.models, "serve_batch": args.serve_batch,
             "max_delay_ms": args.max_delay_ms,
             "serve_e2e": args.serve_e2e})
     done = threading.Event()
     _install_signals(done)
+    where = args.unix_socket or f"http://{args.host}:{args.port}"
+    addr = dict(port=args.port or None, host=args.host,
+                unix_socket=args.unix_socket or None)
+    if args.models:
+        pool = None
+        try:
+            pool, streams, cascade = build_pool(args)
+            default = pool.default_model
+            server = make_server(pool.engine_for(default),
+                                 stream=streams.get(default), pool=pool,
+                                 streams=streams, cascade=cascade, **addr)
+            _serve_until_signal(server, done, (
+                f"{len(pool.model_ids())} model(s) {pool.model_ids()} on "
+                f"{where} (batch={args.serve_batch}, weight budget "
+                f"{args.weight_budget_mb:g} MB, cascade={args.cascade!r})"))
+            logger.info("shutting down: %s", pool.metrics()["pool"])
+        finally:
+            final = None
+            if pool is not None:
+                pool.stop()
+                final = pool.metrics()
+            _close_telemetry(final)
+        return final
+    cfg = config_from_args(args, train=False)
     _, engine = build_engine(args, cfg)
     controller = None
     try:
         warmup(engine)
+        stream = _stream_manager(args, engine) if args.stream else None
         if args.target_p99_ms > 0:
             controller = SLOController(engine, ControllerOptions(
                 target_p99_ms=args.target_p99_ms,
                 interval_s=args.slo_interval_ms / 1e3,
                 window_s=args.slo_window_s)).start()
-        server = make_server(engine, port=args.port or None, host=args.host,
-                             unix_socket=args.unix_socket or None)
-        # serve_forever on a worker thread; the main thread waits for the
-        # signal (shutdown() from the serving thread would deadlock)
-        t = threading.Thread(target=server.serve_forever, name="serve-http",
-                             daemon=True)
-        t.start()
-        where = args.unix_socket or f"http://{args.host}:{args.port}"
-        logger.info("serving %s on %s (batch=%d, max_delay=%.0fms, "
-                    "max_queue=%d, e2e=%s, device=%s)", args.network, where,
-                    args.serve_batch, args.max_delay_ms, args.max_queue,
-                    args.serve_e2e, engine.predictor.device)
-        done.wait()
+        server = make_server(engine, stream=stream, **addr)
+        _serve_until_signal(server, done, (
+            f"{args.network} on {where} (batch={args.serve_batch}, "
+            f"max_delay={args.max_delay_ms:.0f}ms, max_queue="
+            f"{args.max_queue}, e2e={args.serve_e2e}, stream={args.stream}, "
+            f"device={engine.predictor.device})"))
         logger.info("shutting down: %s", engine.metrics()["counters"])
-        server.shutdown()
-        server.server_close()
     finally:
         if controller is not None:
             controller.stop()
         engine.stop()
         final = engine.metrics()
-        tel = telemetry.get()
-        if tel.enabled:
-            tel.write_summary(extra={"serve": final})
-        telemetry.shutdown()
+        _close_telemetry(final)
     return final
+
+
+def _close_telemetry(final):
+    tel = telemetry.get()
+    if tel.enabled and final is not None:
+        tel.write_summary(extra={"serve": final})
+    telemetry.shutdown()

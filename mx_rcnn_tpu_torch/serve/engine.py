@@ -68,9 +68,26 @@ bucket's flush threshold and delay (the program shape never changes),
 ``set_admit_limit`` sheds submits (503, ``serve/shed``) below
 ``max_queue``.
 
-Not ported yet (ROADMAP.md): request capture and cascade intake
-(``submit_staged``).  The ``stream`` and ``cascade`` attributes stay None
-for the slices that attach to them.
+Layers above the batcher (``serve/stream.py``, ``serve/pool.py``):
+
+* ``submit(..., stream=id)`` tags a stream frame; a batch that carries
+  any counts in ``stream_batches`` / ``stream_batch_frames``, and one
+  that mixes frames of two streams in ``stream_coalesced_batches``
+  (``stream/*`` telemetry).  A :class:`~mx_rcnn_tpu_torch.serve.stream.
+  StreamManager` sets :attr:`ServeEngine.stream`, and ``/metrics`` grows
+  its ``stream`` section.
+* ``start(external=True)`` leaves flushing to a
+  :class:`~mx_rcnn_tpu_torch.serve.pool.ModelPool` dispatcher, which
+  reads :meth:`due_state`, claims with :meth:`poll`, runs
+  :meth:`dispatch_batch`, and is woken through ``on_work``.
+* A :class:`~mx_rcnn_tpu_torch.serve.pool.CascadeRouter` sets
+  :attr:`ServeEngine.cascade` on the small model's engine: every e2e
+  batch folds its detections into per-image hardness on the device
+  before the readback (``gate_batch``), and an escalated request enters
+  the big model's engine through :meth:`submit_staged` with the small
+  one's staged pixels.
+
+Request capture is not ported yet (ROADMAP.md A.7.7).
 """
 
 from __future__ import annotations
@@ -140,7 +157,8 @@ class ServeFuture:
     flushed, ``queue_wait_s`` holds the time it queued and ``batch_row``
     the row of the batch it filled."""
 
-    __slots__ = ("_event", "_result", "_error", "queue_wait_s", "batch_row")
+    __slots__ = ("_event", "_result", "_error", "queue_wait_s", "batch_row",
+                 "hardness", "request")
 
     def __init__(self):
         self._event = threading.Event()
@@ -148,6 +166,11 @@ class ServeFuture:
         self._error: Optional[BaseException] = None
         self.queue_wait_s: Optional[float] = None
         self.batch_row: Optional[int] = None
+        # set by the cascade gate on the small model's batches: the image's
+        # hardness and its request, whose staged pixels an escalation
+        # reuses; None on every other path
+        self.hardness: Optional[float] = None
+        self.request = None
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -174,10 +197,10 @@ class ServeFuture:
 
 class _Request:
     __slots__ = ("image", "im_info", "t_enqueue", "deadline", "bucket",
-                 "future", "raw_hw", "ratio")
+                 "future", "raw_hw", "ratio", "orig_hw", "stream")
 
     def __init__(self, image, im_info, t_enqueue, deadline, bucket=None,
-                 raw_hw=None, ratio=None):
+                 raw_hw=None, ratio=None, orig_hw=None, stream=None):
         self.image = image          # the staged (Hb, Wb, 3) uint8 bucket
         self.im_info = im_info      # (3,) [eh, ew, scale]
         self.t_enqueue = t_enqueue  # monotonic
@@ -185,6 +208,8 @@ class _Request:
         self.bucket = bucket        # (Hb, Wb) routing key
         self.raw_hw = raw_hw        # (2,) int32 valid raw extent
         self.ratio = ratio          # () float32 dst→src sampling ratio
+        self.orig_hw = orig_hw      # (h, w) of the submitted image
+        self.stream = stream        # stream id of a StreamManager frame
         self.future = ServeFuture()
 
 
@@ -208,6 +233,9 @@ class ServeEngine:
         self._thread: Optional[threading.Thread] = None
         # external dispatch: another thread calls poll()/dispatch_batch()
         self._external = False
+        # the external dispatcher's work signal, called without the lock
+        # whenever new work or a policy change may have made a flush due
+        self.on_work = None
         # readiness, set by warmup() once every program has dispatched
         self._ready = threading.Event()
         # drain mode: no new admissions; _inflight counts batches handed
@@ -224,7 +252,11 @@ class ServeEngine:
                          "recompiles": 0, "warmup_programs": 0,
                          # boundary crossings, per batch 1/1/1 in both modes
                          "h2d_transfers": 0, "dispatches": 0,
-                         "readbacks": 0, "readback_bytes": 0}
+                         "readbacks": 0, "readback_bytes": 0,
+                         # batches with >= 1 stream frame, their frames, and
+                         # those mixing frames of different streams
+                         "stream_batches": 0, "stream_batch_frames": 0,
+                         "stream_coalesced_batches": 0}
         # latency distributions, live with telemetry off (the controller's
         # and /metrics' source); Hist locks itself, observed outside _lock
         self.hists: Dict[str, Hist] = {
@@ -240,8 +272,11 @@ class ServeEngine:
         self._bucket_delay_ms: Dict[Tuple[int, int], float] = {}
         self._admit_limit: Optional[int] = None
         self.controller = None  # set by SLOController.start()
-        # attached by the stream and cascade layers when they are ported
+        # a StreamManager attaches itself (``/metrics`` grows "stream");
+        # the engine never calls into it
         self.stream = None
+        # a CascadeRouter attaches itself to the small model's engine: each
+        # e2e batch then runs its gate on the device detections
         self.cascade = None
         self._pool = None  # the prep worker pool (opts.prep_workers > 0)
 
@@ -282,6 +317,8 @@ class ServeEngine:
         if self._pool is not None:
             self._pool.close()
             self._pool = None
+        if self.on_work is not None:
+            self.on_work()
 
     # -- readiness / drain -----------------------------------------------
 
@@ -329,6 +366,8 @@ class ServeEngine:
         with self._cond:
             self._draining = False
             self._cond.notify_all()
+        if self.on_work is not None:
+            self.on_work()
 
     # -- intake ----------------------------------------------------------
 
@@ -369,6 +408,8 @@ class ServeEngine:
                     self._bucket_delay_ms[key] = d
             # a shorter delay may make a parked bucket due now
             self._cond.notify()
+        if self.on_work is not None:
+            self.on_work()
 
     def set_admit_limit(self, limit: Optional[int]):
         """Shed submits (503) at this queue depth; ``None`` restores plain
@@ -403,11 +444,13 @@ class ServeEngine:
                 for key in sorted(self._queues.keys())}
 
     def submit(self, image: np.ndarray,
-               deadline_ms: Optional[float] = None) -> ServeFuture:
+               deadline_ms: Optional[float] = None,
+               stream: Optional[str] = None) -> ServeFuture:
         """Enqueue one raw RGB uint8 (H, W, 3) image.  Returns a
         :class:`ServeFuture`; raises :class:`RejectedError` at once when
         the queue is full, load is shed, or the engine is stopped or
-        draining."""
+        draining.  ``stream`` tags a stream frame with its stream id, for
+        the flush side's coalescing counts only."""
         image = np.asarray(image)
         if image.ndim != 3 or image.shape[2] != 3:
             raise ValueError(f"expected (H, W, 3) RGB image, "
@@ -431,8 +474,40 @@ class ServeEngine:
             deadline_ms = self.opts.deadline_ms
         deadline = now + deadline_ms / 1e3 if deadline_ms > 0 else None
         req = _Request(staged, im_info, now, deadline, bucket=key,
-                       raw_hw=raw_hw, ratio=ratio)
+                       raw_hw=raw_hw, ratio=ratio,
+                       orig_hw=(int(image.shape[0]), int(image.shape[1])),
+                       stream=stream)
         return self._enqueue(req, key, tel)
+
+    def submit_staged(self, staged: np.ndarray, raw_hw, ratio, im_info,
+                      orig_hw, deadline_ms: Optional[float] = None,
+                      stream: Optional[str] = None) -> ServeFuture:
+        """Cascade escalation intake: enqueue an already staged uint8
+        bucket (another engine's ``_Request.image``) with its sidecars,
+        without staging again, so the escalated request reuses the pixels
+        byte for byte and pays no host prep.  ``serve_e2e`` mode only.
+        The bucket is checked against this engine's, so that a geometry
+        drift between cascade models raises instead of dispatching a
+        foreign shape."""
+        if not self.opts.serve_e2e:
+            raise RejectedError(
+                "submit_staged requires serve_e2e mode (staged uint8 "
+                "buffers are only a program input on the fused path)")
+        key = self.bucket_key(int(orig_hw[0]), int(orig_hw[1]))
+        if tuple(staged.shape[:2]) != key:
+            raise ValueError(
+                f"staged buffer {tuple(staged.shape[:2])} does not match "
+                f"this engine's bucket {key} — cascade models must share "
+                f"bucket geometry (SCALES + strides)")
+        now = time.monotonic()
+        if deadline_ms is None:
+            deadline_ms = self.opts.deadline_ms
+        deadline = now + deadline_ms / 1e3 if deadline_ms > 0 else None
+        req = _Request(staged, im_info, now, deadline, bucket=key,
+                       raw_hw=raw_hw, ratio=ratio,
+                       orig_hw=(int(orig_hw[0]), int(orig_hw[1])),
+                       stream=stream)
+        return self._enqueue(req, key, telemetry.get())
 
     def _enqueue(self, req: _Request, key, tel) -> ServeFuture:
         """Admission: backpressure and shed checks under the lock, queue
@@ -466,6 +541,8 @@ class ServeEngine:
             tel.counter("serve/requests")
             tel.gauge("serve/queue_depth", depth + 1)
             self._cond.notify()
+        if self.on_work is not None:
+            self.on_work()
         return req.future
 
     # -- dispatch --------------------------------------------------------
@@ -517,6 +594,37 @@ class ServeEngine:
             r.future._set_error(DeadlineExceededError(
                 "request expired before it reached a batch (engine "
                 "overloaded? raise --max-queue or the deadline)"))
+
+    def due_state(self, now: float):
+        """Peek for the pool's scheduler: ``(due, depth, wait_s)``.
+        ``due`` when a bucket would flush now (full, or its delay passed)
+        or an expired request needs sweeping; ``wait_s`` the soonest that
+        could change (None when idle).  Advisory: :meth:`poll` judges
+        again under the lock."""
+        with self._lock:
+            depth = 0
+            due = False
+            wait = None
+            for key, q in self._queues.items():
+                depth += len(q)
+                if not q or due:
+                    continue
+                b = self._bucket_batch.get(key, self.opts.batch_size)
+                delay = self._bucket_delay_ms.get(
+                    key, self.opts.max_delay_ms) / 1e3
+                head_t = q[0].t_enqueue
+                if len(q) >= b or (now - head_t) >= delay:
+                    due = True
+                    continue
+                remaining = delay - (now - head_t)
+                wait = remaining if wait is None else min(wait, remaining)
+                for r in q:
+                    if r.deadline is not None:
+                        if r.deadline <= now:
+                            due = True
+                            break
+                        wait = min(wait, r.deadline - now)
+        return due, depth, wait
 
     def poll(self, now: Optional[float] = None):
         """Claim the next due batch for an external dispatcher: sweeps
@@ -607,14 +715,26 @@ class ServeEngine:
                     h = new_bucket_hists[bk] = Hist()
                 h.observe(req_s)
                 tel.observe(f"serve/request_time/{bk}", req_s)
+        stream_ids = {r.stream for r in reqs if r.stream is not None}
+        stream_frames = sum(1 for r in reqs if r.stream is not None)
         with self._lock:
             self._bucket_hists.update(new_bucket_hists)
             self.counters["batches"] += 1
             self.counters["served"] += len(reqs)
+            if stream_frames:
+                self.counters["stream_batches"] += 1
+                self.counters["stream_batch_frames"] += stream_frames
+                if len(stream_ids) > 1:
+                    self.counters["stream_coalesced_batches"] += 1
             for k, v in xfer.items():
                 self.counters[k] = self.counters.get(k, 0) + v
         tel.counter("serve/batches")
         tel.counter("serve/images", len(reqs))
+        if stream_frames:
+            tel.counter("stream/batches")
+            tel.counter("stream/batch_frames", stream_frames)
+            if len(stream_ids) > 1:
+                tel.counter("stream/coalesced_batches")
         # answered only once counted: a client that has its reply finds
         # its request in /metrics
         for r, res in zip(reqs, results):
@@ -688,7 +808,10 @@ class ServeEngine:
         valid].  Responses come from ``device_dets_to_per_class``, the
         ``--device-postprocess`` contract: exactly ``MAX_PER_IMAGE`` rows,
         so exact score ties at the cap may resolve differently from the
-        host-NMS mode.  Returns as the host-NMS mode does."""
+        host-NMS mode.  With a cascade attached, its gate folds the
+        detections into per-image hardness on the device before the
+        readback (a (B,) float32 read of its own, no h2d copy).  Returns
+        as the host-NMS mode does."""
         cfg = self.cfg
         mpi = int(cfg.TEST.MAX_PER_IMAGE)
         th = float(cfg.TEST.THRESH)
@@ -699,6 +822,8 @@ class ServeEngine:
             # serve traffic never flips
             dets, dvalid = self.predictor.predict_serve_e2e(*args, None,
                                                             mpi, th)
+            if self.cascade is not None:
+                self.cascade.gate_batch(dets, dvalid, reqs)
             return torch.cat([dets, dvalid[..., None].float()], dim=-1)
 
         host = self._call("serve_e2e", shape,
@@ -748,6 +873,8 @@ class ServeEngine:
         out["policy"] = self.policy()
         out["dtype"] = self._dtype
         out["compile"] = self.registry.snapshot()
+        if self.stream is not None:
+            out["stream"] = self.stream.metrics()
         ctrl = self.controller
         if ctrl is not None:
             out["controller"] = ctrl.state()

@@ -1,15 +1,18 @@
 """The serve ``/metrics`` exposition (counterpart of the serving part of
 ``mx_rcnn_tpu/telemetry/obs.py``: ``PROM_CONTENT_TYPE``,
 ``ENGINE_COUNTER_NAMES``, ``prometheus_text``, ``engine_summary``,
-``serve_prometheus``).
+``serve_prometheus``, ``pool_summary``, ``pool_prometheus``).
 
 :func:`prometheus_text` renders per-rank :meth:`Telemetry.summary` dicts
 as Prometheus text; :func:`engine_summary` builds that dict for a
 ``ServeEngine`` from the active sink's aggregates with the engine's own
 counters, queue depth, latency histograms and SLO state folded over them
-(the engine is authoritative for ``serve/*``, telemetry on or off).  The
-live observability plane (``ObsServer``, ``SnapshotWriter``,
-``ObsPlane``) and the pool exposition are not ported yet.  Stdlib only.
+(the engine is authoritative for ``serve/*``, telemetry on or off), and a
+stream manager's counters as ``stream/*``; :func:`pool_prometheus` renders
+a model pool, one rank per model id and its paging, scheduling and cascade
+state under ``rank="pool"``.  The live observability plane
+(``ObsServer``, ``SnapshotWriter``, ``ObsPlane``) is not ported yet.
+Stdlib only.
 """
 
 from __future__ import annotations
@@ -159,6 +162,17 @@ def engine_summary(engine) -> dict:
         if key in m.get("counters", {}):
             counters[name] = m["counters"][key]
     gauges = dict(base.get("gauges") or {})
+    # a stream manager's state (in the engine's metrics only when one is
+    # attached): its counters as stream/*, table size, occupancy and skip
+    # fraction as gauges
+    st = m.get("stream") or {}
+    for key, v in (st.get("counters") or {}).items():
+        counters[f"stream/{key}"] = v
+    for key in ("active_streams", "batch_occupancy", "skip_fraction"):
+        v = st.get(key)
+        if isinstance(v, (int, float)):
+            gauges[f"stream/{key}"] = {
+                "count": 1, "mean": v, "min": v, "max": v, "last": v}
     gen = m.get("generation", 0)
     gauges.setdefault("serve/generation", {
         "count": 1, "mean": gen, "min": gen, "max": gen, "last": gen})
@@ -197,3 +211,47 @@ def serve_prometheus(engine) -> str:
     """The frontend's ``/metrics?format=prom`` body: the engine's summary
     rendered by :func:`prometheus_text` under the active sink's rank."""
     return prometheus_text({telemetry.get().rank: engine_summary(engine)})
+
+
+def pool_summary(pool) -> dict:
+    """A summary-shaped dict of a ``ModelPool``'s own state: the paging
+    and scheduling counters, residency gauges and, with a cascade
+    attached, its decision counters, escalation rate and gate quantiles
+    (``cascade/*``)."""
+    res = pool.residency()
+    counters = {"serve/weight_page_in": pool.counters["weight_page_in"],
+                "serve/weight_page_out": pool.counters["weight_page_out"],
+                "serve/sched_batches": pool.counters["sched_batches"],
+                "serve/sched_switches": pool.counters["sched_switches"]}
+
+    def point(v):
+        return {"count": 1, "mean": v, "min": v, "max": v, "last": v}
+
+    gauges = {"serve/weight_budget_bytes": point(res["budget_bytes"]),
+              "serve/resident_bytes": point(res["device_bytes"]),
+              "serve/resident_models": point(res["resident_models"])}
+    for mid, doc in res["models"].items():
+        gauges[f"serve/resident/{mid}"] = point(doc["resident"])
+        gauges[f"serve/weight_bytes/{mid}"] = point(doc["bytes"])
+        counters[f"serve/weight_page_in/{mid}"] = doc["page_ins"]
+        counters[f"serve/weight_page_out/{mid}"] = doc["page_outs"]
+    cas = pool.cascade.metrics() if pool.cascade is not None else None
+    if cas:
+        for key, v in (cas.get("counters") or {}).items():
+            counters[f"cascade/{key}"] = v
+        gauges["cascade/escalation_rate"] = point(cas["escalation_rate"])
+        gauges["cascade/thresh"] = point(cas["thresh"])
+        for key, v in (cas.get("latency") or {}).items():
+            gauges[f"cascade/{key}"] = point(v)
+    return {"spans": {}, "counters": counters, "gauges": gauges,
+            "hists": {}}
+
+
+def pool_prometheus(pool) -> str:
+    """A pool's ``/metrics?format=prom``: each model's engine summary under
+    ``rank="<model id>"`` and :func:`pool_summary` under
+    ``rank="pool"``."""
+    per_rank = {mid: engine_summary(pool.engine_for(mid))
+                for mid in pool.model_ids()}
+    per_rank["pool"] = pool_summary(pool)
+    return prometheus_text(per_rank)

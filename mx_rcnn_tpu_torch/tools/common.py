@@ -163,16 +163,6 @@ def config_from_args(args, train: bool = True) -> Config:
     return cfg
 
 
-def refuse_fpn(cfg: Config, what: str) -> None:
-    """Raise by name when ``what`` (a serving driver) is asked for an FPN
-    or Mask R-CNN network, whose serving is not ported yet."""
-    if cfg.network.HAS_FPN:
-        raise NotImplementedError(
-            f"{what} of an FPN network ({cfg.network.NETWORK}, HAS_FPN, "
-            f"HAS_MASK={cfg.network.HAS_MASK}) is not ported yet: "
-            f"ROADMAP.md A.10, FPN serving")
-
-
 def get_imdb(args, cfg: Config, test: bool = False):
     """The dataset of a driver: synthetic, or the config's dataset on its
     training or test image set."""

@@ -25,8 +25,10 @@ them.
 * ``predict``, ``predict_with_feats``, ``masks_from_feats``,
   ``predict_masks`` and ``predict_rpn`` of the whole model;
 * ``build_model``'s dispatch; the training forward runs (its parity is
-  ``tests/test_torch_fpn_train.py``'s); serving an FPN network raises by
-  name, alternate training of a mask network with the JAX message.
+  ``tests/test_torch_fpn_train.py``'s); the serve driver builds an engine
+  for the full-width FPN networks (their serving parity is
+  ``tests/test_torch_serve_fpn.py``'s); alternate training of a mask
+  network raises the JAX message.
   ``chip_smoke.py``'s phase 12 holds ``propose_fpn``'s kernels to the
   plain NMS on the card.
 """
@@ -345,12 +347,14 @@ def test_predict_paths_match_jax(model_pair):
     np.testing.assert_array_equal(rpn[2].numpy(), np.asarray(jrpn[2]))
 
 
-def test_build_model_dispatch_training_runs_serving_refused(model_pair,
-                                                            tmp_path):
+def test_build_model_dispatch_training_runs_serve_driver_builds_fpn(
+        model_pair, tmp_path):
     """``build_model`` gives every FPN preset an ``FPNFasterRCNN``; the
     tiny mask model's training forward runs, with a mask loss given masks;
-    serving an FPN network is still refused by name, and alternate
-    training of a mask network raises the JAX package's message."""
+    the serve driver builds an engine for ``resnet101_fpn`` and
+    ``resnet101_fpn_mask`` at full width (COCO's 800×1344 bucket, stride
+    32), and alternate training of a mask network raises the JAX
+    package's message."""
     for net in ("resnet50_fpn", "resnet101_fpn", "resnet101_fpn_mask"):
         cfg = generate_config(net, "coco")
         assert cfg.tpu.ROI_SAMPLING_RATIO == 2
@@ -373,14 +377,24 @@ def test_build_model_dispatch_training_runs_serving_refused(model_pair,
     from mx_rcnn_tpu_torch import train_alternate
     from mx_rcnn_tpu_torch.models.fpn import NO_MASK_ALTERNATE
     from mx_rcnn_tpu_torch.serve import driver
+    from mx_rcnn_tpu_torch.tools.common import config_from_args
     argv = ["--synthetic", "--device", "cpu", "--prefix",
             str(tmp_path / "e2e"), "--root_path", str(tmp_path / "data")]
     for net in ("resnet101_fpn", "resnet101_fpn_mask"):
         args = driver.parse_args(["--synthetic", "--device", "cpu",
-                                  "--network", net, "--unix-socket",
+                                  "--network", net, "--dataset", "coco",
+                                  "--serve-batch", "2", "--unix-socket",
                                   str(tmp_path / "s.sock")])
-        with pytest.raises(NotImplementedError, match="serving of an FPN"):
-            driver.main(args)
+        cfg = config_from_args(args, train=False)
+        predictor, engine = driver.build_engine(args, cfg)
+        try:
+            assert isinstance(predictor.model, FPNFasterRCNN)
+            assert predictor.model.has_mask == (net == "resnet101_fpn_mask")
+            assert engine.bucket_key(480, 640) == (800, 1344)
+            assert engine.bucket_key(640, 480) == (1344, 800)
+            assert engine.readiness()["warmed"] is False
+        finally:
+            engine.stop()
     with pytest.raises(NotImplementedError, match=re.escape(NO_MASK_ALTERNATE)):
         train_alternate.alternate_train(train_alternate.parse_args(
             argv + ["--network", "resnet101_fpn_mask"]))

@@ -26,7 +26,8 @@ draw from their step keys (``mx_rcnn_tpu/models/fpn.py``: ``split(key,
   (the tiny overrides) 2 steps, then ``test`` on its checkpoint;
   ``train_alternate --network resnet101_fpn`` 1 step a stage, its combined
   model with stage 4's neck; ``train_alternate`` of a mask network raises
-  the JAX message before any stage; serving an FPN network stays refused.
+  the JAX message before any stage; the serve driver builds an engine for
+  an FPN network.
 """
 
 import dataclasses
@@ -451,6 +452,7 @@ def test_train_alternate_fpn_then_test(tmp_path, monkeypatch):
 def test_drivers_refuse_mask_alternate_and_fpn_serving(tmp_path, monkeypatch):
     from mx_rcnn_tpu_torch.serve import driver
     from mx_rcnn_tpu_torch.tools import train_rpn
+    from mx_rcnn_tpu_torch.tools.common import config_from_args
 
     monkeypatch.setattr(train_rpn, "fit", lambda *a, **k: pytest.fail(
         "a stage ran"))
@@ -460,11 +462,15 @@ def test_drivers_refuse_mask_alternate_and_fpn_serving(tmp_path, monkeypatch):
         train_alternate.alternate_train(train_alternate.parse_args(
             argv + ["--network", "resnet101_fpn_mask"]))
     assert str(got.value) == NO_MASK_ALTERNATE
+    # FPN serving is no longer refused: the serve driver builds an engine
+    # for both networks (their serving parity: tests/test_torch_serve_fpn.py)
     for net in ("resnet101_fpn", "resnet101_fpn_mask"):
         args = driver.parse_args(["--synthetic", "--device", "cpu",
-                                  "--network", net, "--unix-socket",
-                                  str(tmp_path / "s.sock")])
-        with pytest.raises(NotImplementedError,
-                           match="serving of an FPN network.*A.10"):
-            driver.main(args)
+                                  "--network", net, "--cfg",
+                                  "network__NETWORK='resnet50'",
+                                  "--unix-socket", str(tmp_path / "s.sock")])
+        predictor, engine = driver.build_engine(
+            args, config_from_args(args, train=False))
+        engine.stop()
+        assert predictor.model.has_mask == net.endswith("_mask")
     assert not list(tmp_path.iterdir())

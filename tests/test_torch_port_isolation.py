@@ -52,7 +52,9 @@ def test_imports_with_jax_and_the_jax_package_blocked():
                 "train.optim", "train.train_step", "utils.convert_torch",
                 "models.fpn", "native", "eval.mask_rle", "ops.mask_paste",
                 "eval.coco_eval", "data.coco_dataset", "data.mask",
-                "ops.mask_target", "models.backbones", "models.detector"):
+                "ops.mask_target", "models.backbones", "models.detector",
+                "serve.stream", "serve.pool", "flywheel",
+                "flywheel.hardness"):
         assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -173,19 +175,21 @@ def test_test_driver_without_a_card_raises(monkeypatch, tmp_path):
 
 def test_serve_driver_without_a_card_raises(monkeypatch, tmp_path):
     """``python -m mx_rcnn_tpu_torch.serve`` without ``--device`` needs the
-    card: it raises before building anything or binding its socket; the
-    flags of the serving modes not ported are not accepted."""
+    card: it raises before building anything or binding its socket, a
+    model pool with its streams and cascade too; the flags of the serving
+    modes not ported are not accepted."""
     from mx_rcnn_tpu_torch.serve import driver
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sock = tmp_path / "s.sock"
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        driver.main(driver.parse_args(["--synthetic", "--unix-socket",
-                                       str(sock)]))
-    assert not sock.exists()
-    for flag in ("--replicas", "--fabric", "--join", "--models", "--cascade",
-                 "--stream", "--watch-checkpoints", "--capture-dir",
-                 "--trace", "--watch"):
+    for extra in ([], ["--stream", "--serve-e2e", "--models",
+                       "a=resnet50,b=resnet50_fpn", "--cascade", "a:b"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            driver.main(driver.parse_args(["--synthetic", "--unix-socket",
+                                           str(sock)] + extra))
+        assert not sock.exists()
+    for flag in ("--replicas", "--fabric", "--join", "--watch-checkpoints",
+                 "--capture-dir", "--trace", "--watch"):
         with pytest.raises(SystemExit):
             driver.parse_args(["--synthetic", flag, "1"])
 
