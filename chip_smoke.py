@@ -237,11 +237,33 @@ Phases, each printing its own lines:
    no first dispatch), the cascade at thresh 0 (every reply the FPN
    model's) and 1 (none escalated, the gate's hardness equal to
    ``hardness_from_records``).
-16. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
+16. Hot reload and the replica plane (``replica_slice``), from phase 7's
+   checkpoint (ResNet-101, VOC, 600×1000, bf16, batch 2) and a perturbed
+   generation of it (every leaf × (1 + 0.05·N(0, 1)), seeded):
+   ``reload_in_process``: ``serve --watch-checkpoints P`` in process in
+   e2e and then host-NMS mode, one client posting while epoch 2 appears:
+   every reply 200 and equal to one generation's offline records of its
+   row, the new ones once the swap is seen, no first dispatch, the
+   canary's NMS launches counted (2 / 1 a kernel) and its NMS inputs
+   through the kernels equal to the plain versions (timed in e2e mode),
+   then a corrupt generation rejected with every parameter and buffer
+   back bitwise (swap wall, canary and rollback ms).  ``replica_plane``:
+   ``python -m mx_rcnn_tpu_torch.serve --replicas 2 --serve-e2e
+   --watch-checkpoints P`` on the one card: requests/s through the
+   router at 2 replicas, a rolling reload under two clients with no
+   non-2xx reply and every later reply the new weights' records, each
+   replica's NMS launches (2 a batch plus 2 a canary, from its
+   ``/metrics``) and device memory, kill -9 of replica 0
+   (``MXR_FAULT_REPLICA_KILL_AFTER``) retried on replica 1, requests/s at
+   1 replica while it is away, its respawn caught up to generation 1
+   (respawn to ready); then a second plane where
+   ``MXR_FAULT_REPLICA_CORRUPT_CKPT`` on replica 1 aborts the roll,
+   replica 0 goes back to the boot checkpoint and the generation stays 0.
+17. One ``{"kernels": [...]}`` JSON line (each row's ``shape`` names the
    shape it was timed at: the training path's, then COCO's, then FPN's
    joint proposal, then FPN training's anchors and joint proposal, then
-   VGG's, then FPN serving's), then the last line ``{"ok": true,
-   "device": {...}}``.
+   VGG's, then FPN serving's, then the reload canary's), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when CUDA is unavailable or any phase
 fails.  Imports nothing of JAX or of the JAX package.
@@ -456,6 +478,24 @@ POOL_FLAGS = ["--dataset", "coco",
               "--cfg", f"network__PIXEL_STDS={PIXEL_STDS!r}",
               "--cfg", "TEST__THRESH=0.001"]
 POOL_REQUESTS = 8
+# phase 16, hot reload and the replica plane: phase 7's checkpoint and
+# flags; the new generation is every leaf of it times 1 + NOISE·N(0, 1)
+# (seeded), the raws four of phase 7's sizes (both orientations); a
+# watcher polls every WATCH_S; the plane's requests/s are read over
+# PLANE_RATE_REQUESTS requests from PLANE_CLIENTS threads, its roll runs
+# under at most PLANE_ROLL_CAP requests and replica 0 kills itself after
+# PLANE_KILL_AFTER replies, more than it can have served before the kill
+# phase (PLANE_RATE_REQUESTS + PLANE_ROLL_CAP); each plane is ready or
+# fails within PLANE_READY_S
+RELOAD_NOISE = 0.05
+RELOAD_SIZES = SERVE_SIZES[:4]
+WATCH_S = 0.1
+PLANE_CLIENTS = 2
+PLANE_KILL_CLIENTS = 4
+PLANE_RATE_REQUESTS = 32
+PLANE_ROLL_CAP = 100
+PLANE_KILL_AFTER = 140
+PLANE_READY_S = 300
 # the float32 R-CNN forward on the card against CPU copies (TF32 off)
 VGG_F32_RTOL = 1e-4
 
@@ -5425,6 +5465,595 @@ def serving_stack_slice(P, paths: dict, work: str, seed: int,
     return rows
 
 
+# ---- hot reload and the replica plane (phase 16) ------------------------------
+
+def perturbed(params: dict, seed: int) -> dict:
+    """Every float leaf times 1 + ``RELOAD_NOISE``·N(0, 1) (seeded): a new
+    generation near the old one (the frozen BN variances stay positive)."""
+    rng = np.random.RandomState(seed)
+    return {k: (v * (1.0 + RELOAD_NOISE * rng.standard_normal(v.shape))
+                ).astype(v.dtype) if np.issubdtype(v.dtype, np.floating)
+            else v for k, v in sorted(params.items())}
+
+
+def wait_until(cond, what: str, timeout: float = 120.0, proc=None,
+               log_path: str = "") -> float:
+    """Poll ``cond`` every 50 ms; fail after ``timeout`` s or when ``proc``
+    exits (printing its log's tail).  Returns the seconds waited."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if cond():
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if proc is not None and proc.poll() is not None:
+            if log_path:
+                with open(log_path) as f:
+                    print(f.read()[-3000:], flush=True)
+            fail(f"{what}: the process exited with {proc.returncode}")
+        if time.perf_counter() - t0 > timeout:
+            fail(f"timed out after {timeout:.0f} s waiting for {what}")
+        time.sleep(0.05)
+
+
+def run_clients(P, sock: str, payloads: list, threads: int, cap: int,
+                stop: threading.Event, out: list) -> list:
+    """``threads`` client threads posting ``payloads`` round robin to
+    ``/predict`` on ``sock`` until ``stop`` or ``cap`` requests; each
+    reply appended to ``out`` as (image index, generation seen before the
+    send, status, reply).  Returns the started threads."""
+    lock = threading.Lock()
+    count = [0]
+
+    def client():
+        while not stop.is_set():
+            with lock:
+                i = count[0]
+                if i >= cap:
+                    return
+                count[0] += 1
+            j = i % len(payloads)
+            status, resp = P.serve.unix_http_request(
+                sock, "POST", "/predict", payloads[j], timeout=300)
+            out.append((j, status, resp))
+
+    ths = [threading.Thread(target=client, daemon=True)
+           for _ in range(threads)]
+    for t in ths:
+        t.start()
+    return ths
+
+
+def join_all(ths) -> None:
+    for t in ths:
+        t.join(300)
+        if t.is_alive():
+            fail("a client thread did not finish within 300 s")
+
+
+def golden_candidates(P, predictor, cfg, engine, dev):
+    """The canary's proposal NMS input: its golden image in a batch of
+    ``batch_size`` through the RPN of ``predictor`` → (boxes, scores,
+    valid), the batch and the predictor's outputs."""
+    img = P.replica.golden_image(*engine._scale)
+    b = engine.opts.batch_size
+    s, hw, r, info = P.image_mod.stage_raw_to_bucket(img, engine._scale,
+                                                     engine._stride)
+    batch = predictor.batch_put({
+        "images": np.stack([s] * b), "raw_hw": np.stack([hw] * b),
+        "prep_ratio": np.stack([r] * b), "im_info": np.stack([info] * b)})
+    m, te = predictor.model, cfg.TEST
+    with torch.inference_mode():
+        feat = m.backbone(batch["images"])
+        cls, bbox = m.rpn(feat)
+        anchors = m._anchors_for(feat.shape[1], feat.shape[2], dev)
+        info_d = torch.as_tensor(batch["im_info"], device=dev)
+        cand = P.proposal_candidates(P.fg_prob(cls), bbox, anchors, info_d,
+                                     pre_nms_top_n=te.RPN_PRE_NMS_TOP_N,
+                                     min_size=te.RPN_MIN_SIZE)
+        out = predictor.predict(batch["images"], batch["im_info"])
+    return cand, info_d, out
+
+
+def canary_nms_rows(P, predictor, cfg, engine, dev, e2e: bool) -> list:
+    """The canary's NMS inputs on the live weights, through the kernels and
+    their plain versions: the proposal's kept rows equal ``nms_padded``'s,
+    and in e2e mode the post-process's equal ``nms_padded_batch``'s; in
+    e2e mode both pairs are timed with their bounds (the rows returned)."""
+    te = cfg.TEST
+    (boxes, scores, valid), info, out = golden_candidates(
+        P, predictor, cfg, engine, dev)
+    ki, km = P.nms_cuda.nms_bitmask(boxes, valid, te.RPN_POST_NMS_TOP_N,
+                                    te.RPN_NMS_THRESH)
+    for b in range(boxes.shape[0]):
+        ri, rm = P.nms_padded(boxes[b], scores[b], te.RPN_POST_NMS_TOP_N,
+                              te.RPN_NMS_THRESH, valid=valid[b])
+        if not torch.equal(ki[b][km[b]], ri[rm]):
+            fail(f"reload canary: the proposal NMS kernels keep other rows "
+                 f"than nms_padded in image {b}")
+    if not e2e:
+        return []
+    rois, roi_valid, cls_prob, deltas, _ = out
+    with torch.inference_mode():
+        rows = P.per_class_rows(rois.float(), roi_valid, cls_prob.float(),
+                                deltas.float(), info,
+                                num_classes=cfg.NUM_CLASSES,
+                                thresh=te.THRESH)
+    bsz, k1, r, _ = rows[0].shape
+    bs, ss, sv = P.rank_rows(*(t.reshape(bsz * k1, r, *t.shape[3:])
+                               for t in rows))
+    pki, pkm = P.nms_cuda.nms_bitmask(bs, sv, te.MAX_PER_IMAGE, te.NMS)
+    ppi, ppm = P.nms_padded_batch(bs, ss, te.MAX_PER_IMAGE, te.NMS, sv)
+    if not (torch.equal(pki, ppi) and torch.equal(pkm, ppm)):
+        fail("reload canary: the post-process NMS kernels keep other rows "
+             "than nms_padded_batch")
+    jrows = time_kernels(P.nms_cuda, boxes, valid, te.RPN_POST_NMS_TOP_N,
+                         te.RPN_NMS_THRESH)
+    prows = time_kernels(P.nms_cuda, bs, sv, te.MAX_PER_IMAGE, te.NMS)
+    for k in jrows + prows:
+        if k["max_abs_err"] != 0.0:
+            fail(f"reload canary: {k['name']} disagrees with its plain "
+                 f"version")
+    for k in jrows:
+        k["shape"] = (f"replica canary proposal: B={BATCH}, "
+                      f"n={int(boxes.shape[1])} -> {te.RPN_POST_NMS_TOP_N}")
+    for k in prows:
+        k["shape"] = (f"replica canary post-process: {bsz * k1} rows x {r} "
+                      f"-> {te.MAX_PER_IMAGE}")
+    return jrows + prows
+
+
+def classify_replies(replies, old, new, what: str) -> dict:
+    """Each reply of one sequential client equals the offline records of
+    its row under the old or the new weights; a reply sent once the
+    engine's generation read 1 is the new weights'; no old reply follows
+    a new one.  Returns the counts."""
+    seen_new = False
+    counts = {"old": 0, "new": 0, "either": 0}
+    for n, (j, gen, status, resp) in enumerate(replies):
+        if status != 200:
+            fail(f"{what}: reply {n} has status {status}: {resp}")
+        row = resp.get("batch_row")
+        if row not in range(BATCH):
+            fail(f"{what}: reply {n} has batch_row {row!r}")
+        is_old = records_equal(resp["detections"], old[j][row])
+        is_new = records_equal(resp["detections"], new[j][row])
+        if not (is_old or is_new):
+            fail(f"{what}: reply {n} equals neither generation's offline "
+                 f"records in row {row}")
+        if is_old and not is_new:
+            if seen_new or gen == 1:
+                fail(f"{what}: reply {n} has the old weights' records after "
+                     f"the swap")
+            counts["old"] += 1
+        elif is_new and not is_old:
+            seen_new = True
+            counts["new"] += 1
+        else:
+            counts["either"] += 1
+    if not counts["old"] or not counts["new"]:
+        fail(f"{what}: no reply on one side of the swap ({counts})")
+    return counts
+
+
+def reload_in_process(P, gens: list, images: list, work: str, e2e: bool,
+                      dev) -> tuple:
+    """The single server's ``--watch-checkpoints`` (``serve.driver``'s
+    ``build_engine``, ``warmup``, ``make_server`` and
+    ``watch_checkpoints``) booted from epoch 1 = ``gens[0]``: one client
+    thread posts while epoch 2 = ``gens[1]`` appears.  Every reply 200
+    and equal to one generation's offline records of its row, in order;
+    no first dispatch; the canary's NMS launches (2 e2e / 1 host NMS a
+    pair) and its NMS inputs through the kernels equal to the plain
+    versions; then a corrupt generation (``ReplicaFaults`` with
+    ``MXR_FAULT_REPLICA_CORRUPT_CKPT``) rejected with every parameter and
+    buffer back bitwise.  Returns (report, timed kernel rows, the offline
+    records of each generation)."""
+    mode = "e2e" if e2e else "host_nms"
+    prefix = os.path.join(work, "reload", mode, "c4")
+    P.save_params_npz(P.epoch_path(prefix, 1), gens[0])
+    sock = os.path.join(work, f"reload-{mode}.sock")
+    args = P.serve_driver.parse_args(EVAL_FLAGS + [
+        "--prefix", prefix, "--epoch", "1", "--serve-batch", str(BATCH),
+        "--max-delay-ms", "10", "--watch-checkpoints", prefix,
+        "--watch-interval-s", str(WATCH_S), "--unix-socket", sock]
+        + (["--serve-e2e"] if e2e else []))
+    cfg = P.config_from_args(args, train=False)
+    predictor, engine = P.serve_driver.build_engine(args, cfg)
+    server = P.serve.make_server(engine, unix_socket=sock)
+    watcher = None
+    try:
+        if P.serve.warmup(engine) != 2:
+            fail(f"reload [{mode}]: warmup did not first-dispatch 2 programs")
+        old = [offline_records(P, predictor, cfg, im, e2e) for im in images]
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        watcher = P.serve_driver.watch_checkpoints(args, engine, predictor,
+                                                   cfg)
+        payloads = [P.serve.encode_image_payload(im) for im in images]
+        replies, stop = [], threading.Event()
+
+        def client():
+            j = 0
+            while not stop.is_set():
+                gen = engine.generation
+                status, resp = P.serve.unix_http_request(
+                    sock, "POST", "/predict", payloads[j % len(images)],
+                    timeout=300)
+                replies.append((j % len(images), gen, status, resp))
+                j += 1
+
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        wait_until(lambda: len(replies) >= 4, f"reload [{mode}]: traffic")
+        P.save_params_npz(P.epoch_path(prefix, 2), gens[1])
+        swap_wait = wait_until(lambda: engine.generation == 1,
+                               f"reload [{mode}]: the watched swap")
+        n = len(replies)
+        wait_until(lambda: len(replies) >= n + 4,
+                   f"reload [{mode}]: traffic after the swap")
+        stop.set()
+        join_all([th])
+        info = dict(engine.last_reload or {})
+        new = [offline_records(P, predictor, cfg, im, e2e) for im in images]
+        counts = classify_replies(replies, old, new, f"reload [{mode}]")
+        per_pair = 2 if e2e else 1
+        if not info.get("ok") or info["recompiles_during_swap"] != 0 \
+                or info["canary_launches"] != {"nms_mask": per_pair,
+                                               "nms_sweep": per_pair}:
+            fail(f"reload [{mode}]: swap info {info}")
+        c = engine.counters
+        if c["recompiles"] != c["warmup_programs"] or c["recompiles"] != 2:
+            fail(f"reload [{mode}]: first dispatches after warmup: {c}")
+        rows = canary_nms_rows(P, predictor, cfg, engine, dev, e2e)
+        # a corrupt generation: rejected, the weights back bitwise
+        before = state_snapshot(predictor.model)
+        ok, bad = P.replica.reload_engine_params(
+            engine, predictor, cfg,
+            {"prefix": prefix, "kind": "epoch", "epoch": 2, "consumed": 0},
+            faults=P.replica.ReplicaFaults(
+                0, env={P.replica.ENV_CORRUPT_CKPT: "0"}))
+        after = state_snapshot(predictor.model)
+        if ok or not bad.get("rolled_back") or \
+                "canary failed" not in bad.get("error", ""):
+            fail(f"reload [{mode}]: the corrupt generation was not "
+                 f"rejected: {bad}")
+        if len(before) != len(after) or not all(
+                torch.equal(x, y) for x, y in zip(before, after)):
+            fail(f"reload [{mode}]: the weights are not back bitwise after "
+                 f"the rollback")
+        del before, after
+        status, resp = P.serve.unix_http_request(
+            sock, "POST", "/predict", payloads[0], timeout=300)
+        if status != 200 or engine.generation != 1 or not records_equal(
+                resp["detections"], new[0][resp["batch_row"]]):
+            fail(f"reload [{mode}]: the rolled-back server does not serve "
+                 f"generation 1 ({status}, generation {engine.generation})")
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+    return {"mode": mode, "replies": len(replies), **counts,
+            "swap_seen_after_s": swap_wait, "swap_wall_s": info["wall_s"],
+            "update_ms": info["update_ms"], "canary_ms": info["canary_ms"],
+            "canary_launches": info["canary_launches"],
+            "recompiles_during_swap": info["recompiles_during_swap"],
+            "rollback_ms": bad["rollback_ms"], "corrupt_rejected": True,
+            "weights_bitwise_after_rollback": True}, rows, \
+        {"old": old, "new": new}
+
+
+def plane_start(P, work: str, name: str, prefix: str, env: dict) -> tuple:
+    """``python -m mx_rcnn_tpu_torch.serve --replicas 2 --serve-e2e
+    --watch-checkpoints PREFIX`` booted from ``PREFIX``'s epoch 1, with
+    ``env`` added (the fault variables), its output (the children's too)
+    in a log file.  Returns (process, router socket, log path, seconds to
+    two ready replicas)."""
+    sock = os.path.join(work, f"{name}.sock")
+    log_path = os.path.join(work, f"{name}.log")
+    argv = [sys.executable, "-m", "mx_rcnn_tpu_torch.serve", "--replicas",
+            "2", "--serve-e2e", "--prefix", prefix, "--epoch", "1",
+            "--watch-checkpoints", prefix, "--watch-interval-s", str(WATCH_S),
+            "--unix-socket", sock, "--serve-batch", str(BATCH),
+            "--max-delay-ms", "10"] + EVAL_FLAGS
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            argv, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+            stderr=subprocess.STDOUT, env=dict(os.environ, **env),
+            start_new_session=True)  # its process group: the children too
+    ready_s = wait_until(
+        lambda: P.serve.unix_http_request(sock, "GET", "/readyz", timeout=5)[
+            1].get("ready_replicas") == 2,
+        f"plane {name}: two ready replicas", PLANE_READY_S, proc, log_path)
+    return proc, sock, log_path, ready_s
+
+
+def plane_stop(P, proc, log_path: str, pids: list) -> None:
+    """SIGTERM the plane: exit 0 within 120 s, every child gone.  The
+    plane's process group (its children with it) is killed in any case
+    before this returns."""
+    import signal
+
+    try:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    left = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+        left.append(f"group {proc.pid}")
+    except ProcessLookupError:
+        pass
+    if rc != 0 or left:
+        with open(log_path) as f:
+            print(f.read()[-3000:], flush=True)
+        fail(f"plane: exit code {rc} on SIGTERM, children left {left}")
+
+
+def plane_metrics(P, sock: str) -> dict:
+    status, doc = P.serve.unix_http_request(sock, "GET", "/metrics",
+                                            timeout=60)
+    if status != 200:
+        fail(f"plane: router /metrics gave {status}")
+    return doc
+
+
+def plane_rate(P, sock: str, payloads: list, threads: int) -> tuple:
+    """``PLANE_RATE_REQUESTS`` requests from ``threads`` clients through
+    the router: (requests/s, replies)."""
+    out, stop = [], threading.Event()
+    t0 = time.perf_counter()
+    join_all(run_clients(P, sock, payloads, threads, PLANE_RATE_REQUESTS,
+                         stop, out))
+    wall = time.perf_counter() - t0
+    statuses = [st for _, st, _ in out]
+    if statuses != [200] * PLANE_RATE_REQUESTS:
+        fail(f"plane: statuses {statuses} through the router")
+    return PLANE_RATE_REQUESTS / wall, out
+
+
+def check_launches(m: dict, canaries: dict, what: str) -> dict:
+    """Each replica's NMS launches (its ``/metrics`` ``kernels``) equal
+    two a batch (e2e) plus two a canary, the warmup's batches included:
+    the pair ran in every batch and every canary of every replica."""
+    out = {}
+    for i, doc in sorted(m["engines"].items()):
+        want = 2 * doc["counters"]["batches"] + 2 * canaries[i]
+        got = doc["kernels"]
+        if got != {"nms_mask": want, "nms_sweep": want}:
+            fail(f"{what}: replica {i} launched {got}, expected {want} each "
+                 f"({doc['counters']['batches']} batches, {canaries[i]} "
+                 f"canaries)")
+        out[i] = got
+    return out
+
+
+def replica_plane(P, gens: list, images: list, offline: dict, work: str
+                  ) -> dict:
+    """``serve --replicas 2 --serve-e2e --watch-checkpoints P`` on the one
+    card (both children on device 0, each its own CUDA context), two
+    planes:
+
+    * replica 0 with ``MXR_FAULT_REPLICA_KILL_AFTER`` = ``PLANE_KILL_AFTER``:
+      requests/s at 2 replicas; the rolling reload to epoch 2 under
+      ``PLANE_CLIENTS`` clients, every reply 200 and, after the roll, the
+      new weights' offline records of its row; the NMS launches of each
+      replica; then ``PLANE_KILL_CLIENTS`` clients until a request finds
+      replica 0 dead and is retried on replica 1; requests/s at 1 replica
+      while replica 0 is away; replica 0 respawned and caught up to
+      generation 1 (respawn to ready);
+    * replica 1 with ``MXR_FAULT_REPLICA_CORRUPT_CKPT``: epoch 2 swapped
+      into replica 0, rejected by replica 1's canary, the roll aborted,
+      replica 0 back on the boot checkpoint, the generation 0, every reply
+      the boot weights' records."""
+    prefix = os.path.join(work, "plane", "c4")
+    P.save_params_npz(P.epoch_path(prefix, 1), gens[0])
+    payloads = [P.serve.encode_image_payload(im) for im in images]
+    old, new = offline["old"], offline["new"]
+    out = {}
+    proc, sock, log_path, ready_s = plane_start(
+        P, work, "plane-kill", prefix,
+        {P.replica.ENV_KILL_AFTER: f"0:{PLANE_KILL_AFTER}"})
+    pids = []
+    try:
+        m = plane_metrics(P, sock)
+        pids += [r["pid"] for r in m["supervisor"]["replicas"].values()]
+        out["ready_s"] = ready_s
+        out["requests_per_s_2"], _ = plane_rate(P, sock, payloads,
+                                                PLANE_CLIENTS)
+        # the rolling reload under traffic
+        replies, stop = [], threading.Event()
+        ths = run_clients(P, sock, payloads, PLANE_CLIENTS, PLANE_ROLL_CAP,
+                          stop, replies)
+        wait_until(lambda: len(replies) >= 4, "plane: traffic")
+        P.save_params_npz(P.epoch_path(prefix, 2), gens[1])
+        t0 = time.perf_counter()
+        wait_until(lambda: P.serve.unix_http_request(
+            sock, "GET", "/readyz")[1]["generation"] == 1,
+            "plane: the rolling reload", proc=proc, log_path=log_path)
+        out["roll_seen_after_s"] = time.perf_counter() - t0
+        during = len(replies)
+        stop.set()
+        join_all(ths)
+        statuses = [st for _, st, _ in replies]
+        if set(statuses) != {200}:
+            fail(f"plane: non-2xx replies through the rolling reload: "
+                 f"{statuses}")
+        m = plane_metrics(P, sock)
+        c = m["supervisor"]["counters"]
+        if (c["reload"], c["reload_rollback"], m["generation"]) != (2, 0, 1):
+            fail(f"plane: after the roll {c}, generation {m['generation']}")
+        swaps = {}
+        for i, doc in m["engines"].items():
+            r = doc["reload"] or {}
+            if not r.get("ok") or r["recompiles_during_swap"] != 0 or \
+                    doc["generation"] != 1 or \
+                    doc["counters"]["recompiles"] != 2:
+                fail(f"plane: replica {i} after the roll: {r}")
+            swaps[i] = {k: r[k] for k in ("wall_s", "update_ms", "canary_ms",
+                                          "canary_launches")}
+        out["roll"] = {"requests": len(replies), "before_swap_seen": during,
+                       "non_2xx": 0, "swaps": swaps}
+        after = []
+        join_all(run_clients(P, sock, payloads, 1, 2 * len(images),
+                             threading.Event(), after))
+        for j, st, resp in after:
+            if st != 200 or not either_row(resp["detections"], new[j]):
+                fail(f"plane: a reply after the roll is not generation 1's "
+                     f"offline records ({st})")
+        m = plane_metrics(P, sock)
+        out["launches_before_kill"] = check_launches(m, {"0": 1, "1": 1},
+                                                     "plane")
+        out["device_memory"] = {i: d.get("device_memory")
+                                for i, d in m["engines"].items()}
+        # kill -9: replica 0 dies after its PLANE_KILL_AFTER-th reply
+        kill_replies, stop = [], threading.Event()
+        ths = run_clients(P, sock, payloads, PLANE_KILL_CLIENTS, 10 ** 6,
+                          stop, kill_replies)
+        wait_until(lambda: plane_metrics(P, sock)["supervisor"]["counters"][
+            "transport_error"] >= 1, "plane: replica 0's kill")
+        t_dead = time.perf_counter()
+        stop.set()
+        join_all(ths)
+        c = plane_metrics(P, sock)["supervisor"]["counters"]
+        statuses = [st for _, st, _ in kill_replies]
+        if c["retry_ok"] < 1 or set(statuses) - {200, 503} or \
+                statuses.count(503) > 1:
+            fail(f"plane: the kill was not retried on replica 1: {c}, "
+                 f"statuses {sorted(set(statuses))}")
+        wait_until(lambda: plane_metrics(P, sock)["supervisor"]["ready"] == 1,
+                   "plane: replica 0 unrouted")
+        out["requests_per_s_1"], _ = plane_rate(P, sock, payloads,
+                                                PLANE_CLIENTS)
+        out["ready_after_rate_1"] = plane_metrics(P, sock)["supervisor"][
+            "ready"]
+
+        def caught_up():
+            r = plane_metrics(P, sock)["supervisor"]["replicas"]["0"]
+            return (r["state"] == "ready" and r["routable"]
+                    and r["respawns"] == 1 and r["generation"] == 1)
+
+        wait_until(caught_up, "plane: replica 0 respawned and caught up",
+                   PLANE_READY_S, proc, log_path)
+        out["respawn_to_ready_s"] = time.perf_counter() - t_dead
+        m = plane_metrics(P, sock)
+        r0 = m["engines"]["0"]
+        if r0["generation"] != 1 or r0["reload"]["target"] != [2, 0, "epoch"]:
+            fail(f"plane: the respawned replica 0 is not on generation 1: "
+                 f"{r0['reload']}")
+        pids.append(m["supervisor"]["replicas"]["0"]["pid"])
+        out["kill"] = {"requests": len(kill_replies),
+                       "statuses": {str(s): statuses.count(s)
+                                    for s in sorted(set(statuses))},
+                       "counters": c}
+        out["launches_after_respawn"] = check_launches(
+            m, {"0": 1, "1": 1}, "plane after the respawn")
+        out["device_memory_after_respawn"] = {
+            i: d.get("device_memory") for i, d in m["engines"].items()}
+    finally:
+        plane_stop(P, proc, log_path, pids)
+    # the corrupt checkpoint on replica 1
+    prefix = os.path.join(work, "plane-corrupt", "c4")
+    P.save_params_npz(P.epoch_path(prefix, 1), gens[0])
+    proc, sock, log_path, ready_s = plane_start(
+        P, work, "plane-corrupt", prefix, {P.replica.ENV_CORRUPT_CKPT: "1"})
+    pids = []
+    try:
+        m = plane_metrics(P, sock)
+        pids += [r["pid"] for r in m["supervisor"]["replicas"].values()]
+        P.save_params_npz(P.epoch_path(prefix, 2), gens[1])
+        wait_until(lambda: (lambda s: s["counters"]["reload_rollback"] == 1
+                            and s["ready"] == 2)(
+            plane_metrics(P, sock)["supervisor"]),
+            "plane: the aborted roll", proc=proc, log_path=log_path)
+        m = plane_metrics(P, sock)
+        sup = m["supervisor"]
+        r0, r1 = m["engines"]["0"]["reload"], m["engines"]["1"]["reload"]
+        if sup["generation"] != 0 or sup["counters"]["reload"] != 2 or \
+                not r0["ok"] or r0["target"] != [1, 0, "epoch"] or \
+                r1["ok"] or "canary failed" not in r1["error"]:
+            fail(f"plane: the corrupt roll: {sup}, replica 0 {r0}, "
+                 f"replica 1 {r1}")
+        replies = []
+        join_all(run_clients(P, sock, payloads, 1, 2 * len(images),
+                             threading.Event(), replies))
+        for j, st, resp in replies:
+            if st != 200 or not either_row(resp["detections"], old[j]):
+                fail(f"plane: a reply after the rejected roll is not the "
+                     f"boot weights' records ({st})")
+        out["corrupt"] = {"ready_s": ready_s, "generation": 0,
+                          "replica_0_back_to": r0["target"],
+                          "replica_1": r1["error"],
+                          "rollback_ms": r1.get("rollback_ms"),
+                          "replica_0_rollback_wall_s": r0["wall_s"]}
+        out["launches_corrupt"] = check_launches(m, {"0": 2, "1": 1},
+                                                 "corrupt plane")
+    finally:
+        plane_stop(P, proc, log_path, pids)
+    return out
+
+
+def replica_slice(P, prefix: str, epoch: int, work: str, seed: int,
+                  dev) -> list:
+    """Phase 16: hot reload in process in e2e and host-NMS mode
+    (:func:`reload_in_process`), then the replica plane
+    (:func:`replica_plane`), from phase 7's checkpoint (ResNet-101, VOC,
+    600×1000, bf16, batch 2) and a perturbed generation of it.  Returns
+    the NMS pair's rows at the canary's shapes, with the plane's
+    launches."""
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    gens = [P.load_params_npz(P.epoch_path(prefix, epoch))]
+    gens.append(perturbed(gens[0], seed + 16))
+    rng = np.random.RandomState(seed + 17)
+    images = [boxes_image(rng, *hw)[0] for hw in RELOAD_SIZES]
+    reports, rows = [], []
+    for e2e in (True, False):
+        rep, r, recs = reload_in_process(P, gens, images, work, e2e, dev)
+        reports.append(rep)
+        rows += r
+        if e2e:
+            offline = recs  # the plane's references (e2e)
+        log("reload_in_process", card=smi, **rep)
+        torch.cuda.empty_cache()
+    plane = replica_plane(P, gens, images, offline, work)
+    launches = sum(v["nms_mask"]
+                   for v in plane["launches_before_kill"].values())
+    for k in rows:
+        k.update(route="cuda", source=SOURCES[k["name"]],
+                 replaces=REPLACES[k["name"]], launches=launches)
+    log("replica_plane", card=smi, **plane)
+    log("replica_slice", card=smi, network="resnet101", classes=21,
+        bucket=[608, 1024], batch=BATCH,
+        swap_wall_s={r["mode"]: r["swap_wall_s"] for r in reports},
+        canary_ms={r["mode"]: r["canary_ms"] for r in reports},
+        rollback_ms={r["mode"]: r["rollback_ms"] for r in reports},
+        respawn_to_ready_s=plane["respawn_to_ready_s"],
+        requests_per_s={"1": plane["requests_per_s_1"],
+                        "2": plane["requests_per_s_2"]},
+        device_memory=plane["device_memory"],
+        nms_launches_per_replica=plane["launches_before_kill"],
+        seconds=time.perf_counter() - t_phase)
+    return rows
+
+
 def import_port() -> types.SimpleNamespace:
     """The port's modules and functions the phases use, imported from the
     checkout (after the CUDA check, so that a machine without a card fails
@@ -5461,6 +6090,7 @@ def import_port() -> types.SimpleNamespace:
     from mx_rcnn_tpu_torch.ops.nms import (nms_padded, nms_padded_batch,
                                            rank_rows)
     from mx_rcnn_tpu_torch.serve import pool as pool_mod
+    from mx_rcnn_tpu_torch.serve import replica
     from mx_rcnn_tpu_torch.serve import stream as stream_mod
     from mx_rcnn_tpu_torch.flywheel import (HARDNESS_MAX,
                                             build_device_hardness,
@@ -5725,13 +6355,18 @@ def main() -> int:
             "voc": (prefix, epoch),
             "coco": os.path.join(work, "coco_model", "e2e"),
             "fpn": os.path.join(work, "fpn_model", "mask")}, work, args.seed)
+
+        # ---- 16. hot reload and the replica plane at full width -----------
+        torch.cuda.empty_cache()
+        replica = replica_slice(P, prefix, epoch, work, args.seed, dev)
     log("total", seconds=time.perf_counter() - t_start)
 
-    # ---- 16. the kernels line and the result --------------------------------
+    # ---- 17. the kernels line and the result --------------------------------
     # the main path's rows (the training shape), then the COCO shapes', then
     # FPN's joint proposal, then FPN training's anchors and joint proposal,
-    # then VGG's anchors and proposals, then FPN serving's shapes
-    kernels += coco + fpn + fpn_train + vgg + stack
+    # then VGG's anchors and proposals, then FPN serving's shapes, then the
+    # reload canary's
+    kernels += coco + fpn + fpn_train + vgg + stack + replica
     order = ("name", "shape", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

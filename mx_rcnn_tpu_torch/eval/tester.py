@@ -302,25 +302,32 @@ class Predictor:
 
     @torch.inference_mode()
     def predict_serve_e2e(self, staged, raw_hw, ratio, im_info, flip,
-                          max_per_image: int, thresh: float):
+                          max_per_image: int, thresh: float,
+                          return_forward: bool = False):
         """The single-dispatch serving call: device prep
         (``prep_images``), the forward and the device post-process, on the
         device tensors of :meth:`put_staged` → ``(dets (B, cap, 6),
         valid (B, cap))``, still on the device.  ``flip`` (B,) bool or
-        None."""
+        None.  ``return_forward`` appends the forward's ``(rois,
+        roi_valid, cls_prob, bbox_deltas)`` (the hot-reload canary checks
+        them: the detections zero their padded rows)."""
         return self._detections(self.prep(staged, raw_hw, ratio, im_info,
                                           flip), im_info, max_per_image,
-                                thresh)
+                                thresh, return_forward)
 
-    def _detections(self, images, info, max_per_image, thresh):
+    def _detections(self, images, info, max_per_image, thresh,
+                    return_forward: bool = False):
         rois, roi_valid, cls_prob, bbox_deltas, _ = self._forward(images,
                                                                   info)
         cfg = self.cfg
-        return device_postprocess(
+        dets, valid = device_postprocess(
             rois.float(), roi_valid, cls_prob.float(), bbox_deltas.float(),
             info, num_classes=cfg.NUM_CLASSES, thresh=float(thresh),
             nms_thresh=cfg.TEST.NMS, max_per_image=int(max_per_image),
             use_kernel=cfg.TEST.CXX_PROPOSAL)
+        if return_forward:
+            return dets, valid, (rois, roi_valid, cls_prob, bbox_deltas)
+        return dets, valid
 
 
 def im_detect(predictor: Predictor, batch: dict):

@@ -17,11 +17,16 @@ single-process server:
   ``/readyz``, ``/metrics``) over TCP or a Unix socket, its clients, and
   stdio;
 * ``controller`` — the SLO controller: per-bucket flush batch and delay
-  toward ``--target-p99-ms``, and load shedding on the queue trend.
+  toward ``--target-p99-ms``, and load shedding on the queue trend;
+* ``replica``    — hot reload (quiesce, swap, canary, bitwise rollback),
+  the checkpoint watcher, the fault injectors and a replica child's main
+  loop;
+* ``supervisor`` — the replica plane's parent: probes, respawn with
+  backoff, the retrying router and the rolling reload.
 
 Driver: ``python -m mx_rcnn_tpu_torch.serve`` (``serve/driver.py``).
-Hot reload, replicas, the fabric, the autoscaler, capture and the
-watchtower are not ported yet (ROADMAP.md A.7.3–A.7.10).
+The fabric, the autoscaler, capture and the watchtower are not ported yet
+(ROADMAP.md A.7.5–A.7.10).
 """
 
 from mx_rcnn_tpu_torch.serve.controller import ControllerOptions, SLOController
@@ -38,8 +43,21 @@ from mx_rcnn_tpu_torch.serve.frontend import (encode_image_payload,
 from mx_rcnn_tpu_torch.serve.pool import (CascadeFuture, CascadeRouter,
                                           ModelEntry, ModelPool,
                                           param_nbytes)
+from mx_rcnn_tpu_torch.serve.replica import (CheckpointWatcher, NetFaults,
+                                             ReplicaFaults, canary_probe,
+                                             load_serving_params,
+                                             make_reloader, poison_params,
+                                             reload_engine_params,
+                                             scan_checkpoints, serve_replica)
 from mx_rcnn_tpu_torch.serve.stream import (FrameResult, StaleSeqError,
                                             StreamManager, StreamOptions)
+from mx_rcnn_tpu_torch.serve.supervisor import (ReplicaRouter, ReplicaSpec,
+                                                ReplicaSupervisor,
+                                                SupervisorOptions,
+                                                TokenBucket,
+                                                build_child_argv,
+                                                make_router_server,
+                                                replica_specs)
 from mx_rcnn_tpu_torch.serve.warmup import warmup
 
 __all__ = ["ServeEngine", "ServeOptions", "ServeFuture", "RejectedError",
@@ -49,4 +67,10 @@ __all__ = ["ServeEngine", "ServeOptions", "ServeFuture", "RejectedError",
            "tcp_http_request_raw", "encode_image_payload", "warmup",
            "run_stream_stdio", "StreamManager", "StreamOptions",
            "StaleSeqError", "FrameResult", "ModelPool", "ModelEntry",
-           "CascadeRouter", "CascadeFuture", "param_nbytes"]
+           "CascadeRouter", "CascadeFuture", "param_nbytes",
+           "CheckpointWatcher", "ReplicaFaults", "NetFaults", "canary_probe",
+           "load_serving_params", "make_reloader", "poison_params",
+           "reload_engine_params", "scan_checkpoints", "serve_replica",
+           "ReplicaRouter", "ReplicaSpec", "ReplicaSupervisor",
+           "SupervisorOptions", "TokenBucket", "build_child_argv",
+           "make_router_server", "replica_specs"]

@@ -27,6 +27,12 @@ worker processes (``data/workers.py``; the ring lives in ``/dev/shm``).
 by 127 (random weights cannot absorb the raw 0..255 range).  Without a
 card the driver raises unless it is given ``--device cpu``.
 
+    python -m mx_rcnn_tpu_torch.serve --prefix model/e2e --epoch 1 \
+        --serve-e2e --port 8321 --watch-checkpoints model/e2e
+
+    python -m mx_rcnn_tpu_torch.serve --prefix model/e2e --epoch 1 \
+        --serve-e2e --port 8321 --replicas 2 --watch-checkpoints model/e2e
+
 ``--stream`` adds ``POST /stream`` (``serve/stream.py``).  ``--models
 ID=NETWORK,...`` serves several models from one process
 (``serve/pool.py:ModelPool``, ``/predict?model=ID``, the first the
@@ -36,16 +42,32 @@ default), each with its own ``--model-arg ID:KEY=VALUE`` overrides
 ``--cascade SMALL:BIG`` (with ``--models`` and ``--serve-e2e``) routes
 through the confidence gate.  The first SIGTERM/SIGINT shuts down in
 order (frontend, controllers, engines, telemetry summary) and exits 0; a
-second one exits at once with 130.  The flags of the modes not ported yet
-(replicas, fabric, checkpoint watching, capture, tracing, the
-watchtower) are not accepted.
+second one exits at once with 130.
+
+``--watch-checkpoints P`` polls the checkpoint prefix ``P`` every
+``--watch-interval-s`` and hot-reloads each newer epoch or step
+checkpoint (``serve/replica.py``: quiesce, swap, canary, rollback).
+``--replicas N`` (N > 1) runs the replica plane (``serve/supervisor.py``):
+this process holds no model and touches no device; it starts N children
+(``--replica-index I``, each its own CUDA context, on its group of
+``--replica-devices`` or all on the one card), routes ``/predict`` over
+the ready ones with one retry, respawns the dead, rolls the watched
+checkpoints through them one at a time and exits nonzero when every
+replica has failed.  ``--device cpu`` passes through to the children.
+``--models`` and ``--stream`` need the single-process mode.  The flags of
+the modes not ported yet (fabric, capture, tracing, the watchtower) are
+not accepted.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import os
+import shutil
 import signal
+import sys
+import tempfile
 import threading
 
 from mx_rcnn_tpu_torch import telemetry
@@ -57,7 +79,15 @@ from mx_rcnn_tpu_torch.serve.controller import ControllerOptions, SLOController
 from mx_rcnn_tpu_torch.serve.engine import ServeEngine, ServeOptions
 from mx_rcnn_tpu_torch.serve.frontend import make_server
 from mx_rcnn_tpu_torch.serve.pool import CascadeRouter, ModelPool
+from mx_rcnn_tpu_torch.serve.replica import (CheckpointWatcher,
+                                             apply_replica_devices,
+                                             reload_engine_params,
+                                             serve_replica)
 from mx_rcnn_tpu_torch.serve.stream import StreamManager, StreamOptions
+from mx_rcnn_tpu_torch.serve.supervisor import (ReplicaRouter,
+                                                ReplicaSupervisor,
+                                                make_router_server,
+                                                replica_specs)
 from mx_rcnn_tpu_torch.serve.warmup import warmup
 from mx_rcnn_tpu_torch.tools.common import (add_common_args, config_from_args,
                                             load_eval_params)
@@ -156,13 +186,38 @@ def parse_args(argv=None):
                         dest="infer_dtype", choices=list(INFER_DTYPES),
                         help="parameter variant (the int8 ones are not "
                              "ported)")
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="run N supervised replica processes behind a "
+                             "router (1 = the single-process server)")
+    parser.add_argument("--replica-index", type=int, default=-1,
+                        dest="replica_index",
+                        help=argparse.SUPPRESS)  # a replica child's
+    parser.add_argument("--replica-devices", default="",
+                        dest="replica_devices",
+                        help="semicolon-separated device groups, one per "
+                             "replica (group i becomes the child's "
+                             "CUDA_VISIBLE_DEVICES); default: every child "
+                             "on every card")
+    parser.add_argument("--watch-checkpoints", default="",
+                        dest="watch_checkpoints",
+                        help="poll this checkpoint prefix ({prefix}-"
+                             "{epoch:04d}.npz and {prefix}-steps/) and "
+                             "hot-reload each newer checkpoint: canary-"
+                             "gated, rolled back on non-finite outputs, "
+                             "rolling across --replicas")
+    parser.add_argument("--watch-interval-s", type=float, default=5.0,
+                        dest="watch_interval_s",
+                        help="checkpoint watcher poll period")
     parser.add_argument("--telemetry-dir", default="", dest="telemetry_dir",
                         help="write the JSONL event stream and summary.json "
                              "here")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card; raises "
                              "without one)")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    # the plane rebuilds its children's command lines from these
+    args.argv = list(sys.argv[1:] if argv is None else argv)
+    return args
 
 
 def build_engine(args, cfg, external: bool = False):
@@ -297,15 +352,18 @@ def build_pool(args):
     return pool, streams, cascade
 
 
-def _install_signals(done: threading.Event):
+def _install_signals(done: threading.Event, hard_cleanup=None):
     """First SIGTERM/SIGINT: set ``done`` (orderly shutdown); the second:
-    flight dump and exit 130 at once."""
+    flight dump, ``hard_cleanup()`` (the plane kills its children) and
+    exit 130 at once."""
     state = {"armed": False}
 
     def on_signal(signum, frame):
         name = signal.Signals(signum).name
         if state["armed"]:
             telemetry.get().dump_flight("hard_abort", signal=name)
+            if hard_cleanup is not None:
+                hard_cleanup()
             os._exit(130)
         state["armed"] = True
         telemetry.get().dump_flight("preempt_signal", signal=name)
@@ -327,17 +385,68 @@ def _serve_until_signal(server, done: threading.Event, what: str):
     server.server_close()
 
 
+def choose_mode(args) -> str:
+    """argv → serving mode: a replica child first (never recurse into a
+    plane), then the plane, else the single server."""
+    if args.replica_index >= 0:
+        return "replica"
+    if args.replicas > 1:
+        return "plane"
+    return "single"
+
+
+def watch_checkpoints(args, engine, predictor, cfg) -> CheckpointWatcher:
+    """The single server's ``--watch-checkpoints``: a started watcher that
+    swaps each newer checkpoint into this engine."""
+    def reload(target):
+        ok, _ = reload_engine_params(
+            engine, predictor, cfg,
+            dict(target, generation=engine.generation + 1))
+        return ok
+
+    return CheckpointWatcher(args.watch_checkpoints, reload,
+                             interval_s=args.watch_interval_s).start()
+
+
+def boot_target(args):
+    """The checkpoint the replicas boot from as a reload target (None
+    with ``--synthetic``)."""
+    if args.synthetic:
+        return None
+    return {"prefix": args.prefix, "kind": "epoch", "epoch": args.epoch,
+            "consumed": 0}
+
+
 def main(args) -> dict:
     """Serve until a signal; returns the final ``/metrics`` (the pool's
-    under ``--models``)."""
+    under ``--models``, the supervisor's for the plane)."""
     setup_logging()
+    mode = choose_mode(args)
+    if mode == "replica":
+        # before anything touches CUDA: the child's device group
+        apply_replica_devices()
     if not args.unix_socket and not args.port:
         raise SystemExit("pass --port or --unix-socket")
     if args.cascade and not args.models:
         raise SystemExit("--cascade routes between two --models entries; "
                          "pass --models SMALL=...,BIG=... (and "
                          "--serve-e2e)")
+    if args.models and mode != "single":
+        raise SystemExit(f"--models requires single-process mode "
+                         f"(got mode {mode!r})")
+    if args.stream and mode != "single":
+        raise SystemExit(
+            f"--stream requires single-process mode (got mode "
+            f"{mode!r}: drop --replicas/--fabric/--join/--pool-file "
+            f"or run one streaming server per device)")
+    if args.models and args.watch_checkpoints:
+        raise SystemExit("--watch-checkpoints reloads one model's engine; "
+                         "it does not combine with --models")
     resolve_device(args.device)  # no card and no --device cpu: raise now
+    if mode == "replica":
+        return main_replica(args)
+    if mode == "plane":
+        return main_plane(args)
     if args.telemetry_dir:
         telemetry.configure(args.telemetry_dir, run_meta={
             "driver": "serve", "network": args.network,
@@ -370,10 +479,12 @@ def main(args) -> dict:
             _close_telemetry(final)
         return final
     cfg = config_from_args(args, train=False)
-    _, engine = build_engine(args, cfg)
-    controller = None
+    predictor, engine = build_engine(args, cfg)
+    controller = watcher = None
     try:
         warmup(engine)
+        if args.watch_checkpoints:
+            watcher = watch_checkpoints(args, engine, predictor, cfg)
         stream = _stream_manager(args, engine) if args.stream else None
         if args.target_p99_ms > 0:
             controller = SLOController(engine, ControllerOptions(
@@ -388,11 +499,96 @@ def main(args) -> dict:
             f"device={engine.predictor.device})"))
         logger.info("shutting down: %s", engine.metrics()["counters"])
     finally:
+        if watcher is not None:
+            watcher.stop()
         if controller is not None:
             controller.stop()
         engine.stop()
         final = engine.metrics()
         _close_telemetry(final)
+    return final
+
+
+def main_replica(args) -> dict:
+    """One replica child (``--replica-index I``, set by the plane): the
+    engine stack on the supervisor's Unix socket, its telemetry as rank
+    I + 1 of the plane's world."""
+    if not args.unix_socket:
+        raise SystemExit("--replica-index requires --unix-socket")
+    if args.telemetry_dir:
+        telemetry.configure(args.telemetry_dir, rank=args.replica_index + 1,
+                            world=max(args.replicas, 1) + 1, run_meta={
+                                "driver": "serve", "network": args.network,
+                                "replica": args.replica_index})
+    cfg = config_from_args(args, train=False)
+    predictor, engine = build_engine(args, cfg)
+    done = threading.Event()
+    _install_signals(done)
+    try:
+        serve_replica(engine, cfg, args.unix_socket,
+                      index=args.replica_index, predictor=predictor,
+                      done=done)
+    finally:
+        engine.stop()
+        final = engine.metrics()
+        _close_telemetry(final)
+    return final
+
+
+def main_plane(args) -> dict:
+    """The supervisor parent (``--replicas N``, N > 1): no model and no
+    device; it spawns N replica children, routes ``/predict`` over the
+    ready ones, respawns the dead and rolls the watched checkpoints
+    through them.  Raises ``SystemExit`` when every replica has
+    failed."""
+    if args.telemetry_dir:
+        telemetry.configure(args.telemetry_dir, rank=0,
+                            world=args.replicas + 1, run_meta={
+                                "driver": "serve", "network": args.network,
+                                "replicas": args.replicas})
+    sock_dir = tempfile.mkdtemp(prefix="mxr_replicas_")
+    specs = replica_specs(["serve"] + args.argv, args.replicas, sock_dir,
+                          devices=args.replica_devices)
+    sup = ReplicaSupervisor(specs, boot_target=boot_target(args))
+    # no orphans on any exit path: drain, exception or the second signal
+    atexit.register(sup.sweep)
+    done = threading.Event()
+    _install_signals(done, hard_cleanup=lambda: sup.sweep(0.0))
+    watcher = server = None
+    try:
+        sup.start()
+        router = ReplicaRouter(sup)
+        server = make_router_server(router, port=args.port or None,
+                                    host=args.host,
+                                    unix_socket=args.unix_socket or None)
+        if args.watch_checkpoints:
+            watcher = CheckpointWatcher(args.watch_checkpoints,
+                                        sup.reload_to,
+                                        interval_s=args.watch_interval_s)
+            watcher.start()
+        threading.Thread(target=server.serve_forever, name="router-http",
+                         daemon=True).start()
+        where = args.unix_socket or f"http://{args.host}:{args.port}"
+        logger.info("serving plane: %d replica(s) behind %s (sockets "
+                    "under %s)", args.replicas, where, sock_dir)
+        # park until a signal or the systemic failure of every replica
+        while not (done.wait(0.5) or sup.broken.is_set()):
+            pass
+        broken = sup.broken.is_set() and not done.is_set()
+        logger.info("plane shutting down: %s", sup.metrics()["counters"])
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if watcher is not None:
+            watcher.stop()
+        sup.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        final = sup.metrics()
+        _close_telemetry(final)
+    if broken:
+        raise SystemExit("serving plane is down: every replica crossed the "
+                         "respawn limit (see the flight dumps)")
     return final
 
 

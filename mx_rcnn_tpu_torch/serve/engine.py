@@ -87,6 +87,15 @@ Layers above the batcher (``serve/stream.py``, ``serve/pool.py``):
   the big model's engine through :meth:`submit_staged` with the small
   one's staged pixels.
 
+Hot reload (``serve/replica.py``): :meth:`ServeEngine.quiesce` stops the
+flushing and waits until no batch is on the device while admissions stay
+open, so a weight swap in a single server answers no 503 (the queued
+requests flush on the new weights after :meth:`ServeEngine.resume`);
+:meth:`ServeEngine.drain` keeps the JAX contract (admissions refused,
+queue flushed).  ``/metrics`` reports ``generation``, the last swap's
+``reload`` info, the process's NMS kernel launches (``kernels``) and, on
+the card, the process's ``device_memory``.
+
 Request capture is not ported yet (ROADMAP.md A.7.7).
 """
 
@@ -104,6 +113,7 @@ from mx_rcnn_tpu_torch import telemetry
 from mx_rcnn_tpu_torch.compile.registry import ProgramRegistry
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.data.image import bucket_shape, stage_raw_to_bucket
+from mx_rcnn_tpu_torch.kernels import nms_cuda
 from mx_rcnn_tpu_torch.logger import logger
 from mx_rcnn_tpu_torch.ops.postprocess import (decode_image_boxes,
                                                detections_to_records,
@@ -242,8 +252,12 @@ class ServeEngine:
         # to the predictor so that drain() can wait for a quiescent device
         self._draining = False
         self._inflight = 0
-        # checkpoint generation serving now (bumped by a hot reload)
+        # quiesce mode (a weight swap): admissions open, nothing flushes
+        self._quiesced = False
+        # checkpoint generation serving now (bumped by a hot reload) and
+        # the info of the last swap (``serve/replica.py``)
         self.generation = 0
+        self.last_reload: Optional[dict] = None
         self._dtype = getattr(predictor, "infer_dtype", "float32")
         # first-dispatch bookkeeping of this engine's (kind, shape) programs
         self.registry = ProgramRegistry(cfg, self._dtype)
@@ -361,10 +375,30 @@ class ServeEngine:
                 self._cond.wait(timeout=min(remaining, 0.05))
         return True
 
+    def quiesce(self, timeout: float = 30.0) -> bool:
+        """Stop flushing batches and wait until none is on the device,
+        admissions left open: the quiescent point of a weight swap in a
+        single server, where no other replica could take a refused
+        request.  Requests queue meanwhile (503 only past ``max_queue``)
+        and flush after :meth:`resume`.  False if the batch on the device
+        did not finish within ``timeout`` (the caller should
+        ``resume()``)."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            self._quiesced = True
+            while self._inflight:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cond.wait(timeout=min(remaining, 0.05))
+        return True
+
     def resume(self):
-        """Re-open admissions after a :meth:`drain`."""
+        """Re-open admissions after a :meth:`drain` and flushing after a
+        :meth:`quiesce`."""
         with self._cond:
             self._draining = False
+            self._quiesced = False
             self._cond.notify_all()
         if self.on_work is not None:
             self.on_work()
@@ -564,6 +598,8 @@ class ServeEngine:
         request is oldest wins, so no bucket's traffic starves another's.
         "Full" and "due" are judged against the controller's per-bucket
         overrides, else the configured options."""
+        if self._quiesced:
+            return None, None  # resume() notifies
         best_key, best_t, best_full = None, None, False
         wait = None
         for key, q in self._queues.items():
@@ -607,7 +643,7 @@ class ServeEngine:
             wait = None
             for key, q in self._queues.items():
                 depth += len(q)
-                if not q or due:
+                if not q or due or self._quiesced:
                     continue
                 b = self._bucket_batch.get(key, self.opts.batch_size)
                 delay = self._bucket_delay_ms.get(
@@ -859,9 +895,20 @@ class ServeEngine:
                             "serve_e2e": self.opts.serve_e2e},
                 "admit_limit": self._admit_limit,
                 "generation": self.generation,
+                "reload": self.last_reload,
                 "ready": self._ready_locked(),
                 "draining": self._draining,
             }
+        # the process's NMS launches: a replica's /metrics is how the plane
+        # reads them
+        out["kernels"] = {"nms_mask": nms_cuda.nms_mask.launches,
+                          "nms_sweep": nms_cuda.nms_sweep.launches}
+        dev = getattr(self.predictor, "device", None)
+        if dev is not None and dev.type == "cuda":
+            out["device_memory"] = {
+                "allocated": torch.cuda.memory_allocated(dev),
+                "reserved": torch.cuda.memory_reserved(dev),
+                "peak": torch.cuda.max_memory_allocated(dev)}
         latency = {}
         for name, h in self.hists.items():
             short = name.split("/", 1)[1]

@@ -42,11 +42,20 @@ Endpoints:
   ``cascade`` sections); with ``Accept: text/plain`` or
   ``?format=prom``, the Prometheus text of ``telemetry/obs.py``.
 
-``POST /admin/reload`` answers 404, as the JAX frontend does when it is
-built without a reloader (hot reload is not ported yet), and so do
-``/stream`` without a stream manager and a ``?model=`` selector without
-a pool.  Request threads (``ThreadingHTTPServer``) decode and stage
-images concurrently, which is what fills batches.
+* ``POST /admin/reload`` — with a ``reloader`` (a replica's, see
+  ``serve/replica.py:make_reloader``), the body is a reload target
+  ``{"prefix", "kind", "epoch", "consumed"}`` (optionally
+  ``"generation"``): 200 when the new generation is live, 409 when it was
+  rejected and rolled back, 400 on a malformed target; 404 without a
+  reloader, as the JAX frontend answers.
+
+``/stream`` without a stream manager and a ``?model=`` selector without a
+pool answer 404 too.  Three optional hooks serve the replica plane's
+fault injection (``serve/replica.py``): ``gate()`` runs before any
+handling, ``net_faults.intercept(path, handler)`` may consume a request
+(blackhole, reset, delay), and ``request_hook(status)`` runs after each
+``/predict`` reply.  Request threads (``ThreadingHTTPServer``) decode and
+stage images concurrently, which is what fills batches.
 """
 
 from __future__ import annotations
@@ -253,6 +262,10 @@ class _Handler(BaseHTTPRequestHandler):
     pool = None      # a ModelPool: enables ?model= routing
     streams = None   # with a pool: {model_id: StreamManager}
     cascade = None   # a CascadeRouter: /predict rides it
+    reloader = None      # callback(doc) -> (status, doc): /admin/reload
+    request_hook = None  # callback(status) after each /predict
+    gate = None          # callback() before any handling
+    net_faults = None    # NetFaults: intercept(path, handler) -> consumed
 
     def _model_id(self, query: str, doc: Optional[dict] = None):
         mid = query_model(query) if query else None
@@ -297,7 +310,17 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _intercepted(self) -> bool:
+        """The fault hooks, before any handling: True when a network
+        fault consumed the request."""
+        if self.gate is not None:
+            self.gate()
+        return (self.net_faults is not None
+                and self.net_faults.intercept(self.path, self))
+
     def do_GET(self):
+        if self._intercepted():
+            return
         path, _, query = self.path.partition("?")
         pool = self.pool
         if path == "/healthz":
@@ -327,12 +350,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(404, {"error": f"no route {self.path}"})
 
     def do_POST(self):
+        if self._intercepted():
+            return
         path, _, query = self.path.partition("?")
         if path == "/stream":
             self._post_stream(query)
             return
-        if path != "/predict":
-            # /admin/reload included: no reloader
+        if path not in ("/predict", "/admin/reload"):
             self._reply(404, {"error": f"no route {self.path}"})
             return
         try:
@@ -341,14 +365,26 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, json.JSONDecodeError) as e:
             self._reply(400, {"error": f"bad JSON body: {e}"})
             return
+        if path == "/admin/reload":
+            if self.reloader is None:
+                self._reply(404, {"error": "no reloader configured"})
+            elif not isinstance(doc, dict):
+                self._reply(400, {"error": "reload target must be a JSON "
+                                           "object"})
+            else:
+                self._reply(*self.reloader(doc))
+            return
         mid = self._model_id(query, doc)
         engine, err = self._resolve_engine(mid)
         if engine is None:
-            self._reply(*err)
-            return
-        self._reply(*handle_request_doc(
-            engine, doc, trace_header=self.headers.get(TRACE_HEADER),
-            cascade=self.cascade, model_id=mid))
+            status, resp = err
+        else:
+            status, resp = handle_request_doc(
+                engine, doc, trace_header=self.headers.get(TRACE_HEADER),
+                cascade=self.cascade, model_id=mid)
+        self._reply(status, resp)
+        if self.request_hook is not None:
+            self.request_hook(status)
 
     def _post_stream(self, query: str):
         """``/stream``: with a pool, ``?model=`` picks that model's
@@ -401,9 +437,17 @@ def make_server(engine: ServeEngine, port: Optional[int] = None,
                 host: str = "127.0.0.1",
                 unix_socket: Optional[str] = None,
                 stream: Optional[StreamManager] = None, pool=None,
-                streams: Optional[dict] = None, cascade=None):
+                streams: Optional[dict] = None, cascade=None,
+                reloader=None, request_hook=None, gate=None,
+                net_faults=None):
     """Build (not start) the HTTP server on exactly one of ``port`` /
     ``unix_socket``.  The caller owns ``serve_forever``/``shutdown``.
+
+    ``reloader`` enables ``POST /admin/reload``; ``request_hook(status)``
+    runs after each ``/predict`` reply and ``gate()`` before any handling
+    (the replica plane's kill and hang injection points); ``net_faults``
+    (``intercept(path, handler) -> bool``) may blackhole, delay or reset a
+    request below both.
 
     ``stream`` enables ``POST /stream``.  ``pool`` (a
     :class:`~mx_rcnn_tpu_torch.serve.pool.ModelPool`) turns on
@@ -423,6 +467,12 @@ def make_server(engine: ServeEngine, port: Optional[int] = None,
     Handler.pool = pool
     Handler.streams = streams
     Handler.cascade = cascade
+    # staticmethod: a plain function on the class would bind as a method
+    Handler.reloader = staticmethod(reloader) if reloader else None
+    Handler.request_hook = (staticmethod(request_hook) if request_hook
+                            else None)
+    Handler.gate = staticmethod(gate) if gate else None
+    Handler.net_faults = net_faults
     if unix_socket is not None:
         return _UnixHTTPServer(unix_socket, Handler)
     return _TCPHTTPServer((host, port), Handler)

@@ -54,7 +54,7 @@ def test_imports_with_jax_and_the_jax_package_blocked():
                 "eval.coco_eval", "data.coco_dataset", "data.mask",
                 "ops.mask_target", "models.backbones", "models.detector",
                 "serve.stream", "serve.pool", "flywheel",
-                "flywheel.hardness"):
+                "flywheel.hardness", "serve.replica", "serve.supervisor"):
         assert f"mx_rcnn_tpu_torch.{mod}" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -176,22 +176,39 @@ def test_test_driver_without_a_card_raises(monkeypatch, tmp_path):
 def test_serve_driver_without_a_card_raises(monkeypatch, tmp_path):
     """``python -m mx_rcnn_tpu_torch.serve`` without ``--device`` needs the
     card: it raises before building anything or binding its socket, a
-    model pool with its streams and cascade too; the flags of the serving
-    modes not ported are not accepted."""
-    from mx_rcnn_tpu_torch.serve import driver
+    model pool with its streams and cascade too, the checkpoint watcher,
+    and the replica plane before it spawns a child; the flags of the
+    serving modes not ported are not accepted."""
+    from mx_rcnn_tpu_torch.serve import driver, supervisor
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_spawn(*a, **kw):
+        raise AssertionError("the plane spawned a replica")
+
+    monkeypatch.setattr(supervisor.subprocess, "Popen", no_spawn)
     sock = tmp_path / "s.sock"
     for extra in ([], ["--stream", "--serve-e2e", "--models",
-                       "a=resnet50,b=resnet50_fpn", "--cascade", "a:b"]):
+                       "a=resnet50,b=resnet50_fpn", "--cascade", "a:b"],
+                  ["--watch-checkpoints", str(tmp_path / "w")],
+                  ["--replicas", "2", "--watch-checkpoints",
+                   str(tmp_path / "w")]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             driver.main(driver.parse_args(["--synthetic", "--unix-socket",
                                            str(sock)] + extra))
         assert not sock.exists()
-    for flag in ("--replicas", "--fabric", "--join", "--watch-checkpoints",
-                 "--capture-dir", "--trace", "--watch"):
+    for flag in ("--fabric", "--join", "--capture-dir", "--trace",
+                 "--watch"):
         with pytest.raises(SystemExit):
             driver.parse_args(["--synthetic", flag, "1"])
+    # the JAX driver's refusals, word for word
+    for extra, msg in ((["--models", "a=resnet50"],
+                        "--models requires single-process mode"),
+                       (["--stream"], "--stream requires single-process")):
+        with pytest.raises(SystemExit, match=msg):
+            driver.main(driver.parse_args(["--synthetic", "--device", "cpu",
+                                           "--unix-socket", str(sock),
+                                           "--replicas", "2"] + extra))
 
 
 def test_vgg_entry_points_without_a_card_raise(monkeypatch, tmp_path):
